@@ -1,23 +1,27 @@
 """stt_tpu_torch - the PyTorch/CUDA port of stt_tpu.
 
-The serving path of `stt_tpu` in PyTorch, for an NVIDIA H100: artifact
-loading, the MFCC frontend, the DeepSpeech acoustic model whose LSTM
-recurrence runs in a CUDA kernel written for Hopper, CTC beam and greedy
-decoding, streaming, and the `Model`/`Stream` API. It imports nothing of
-`stt_tpu` and no JAX; the two packages share the artifact format, so one
-exported model loads in both.
+The serving and training paths of `stt_tpu` in PyTorch, for an NVIDIA
+H100: artifact loading, the MFCC frontend, the DeepSpeech acoustic model
+whose LSTM recurrence runs in CUDA kernels written for Hopper (inference,
+and training forward and backward), CTC beam and greedy decoding, the CTC
+loss, streaming, the `Model`/`Stream` API, and the trainer. It imports
+nothing of `stt_tpu` and no JAX; the two packages share the artifact
+format, so one exported model loads in both.
 
 Package layout:
   stt_tpu_torch.alphabet   - token<->index maps (copy of stt_tpu.alphabet)
+  stt_tpu_torch.config     - SttConfig, the training flags
   stt_tpu_torch.device     - device selection (CUDA unless asked otherwise)
   stt_tpu_torch.frontend   - framing + spectrogram + MFCC
   stt_tpu_torch.models     - DeepSpeech nn.Module, plain LSTM recurrence
   stt_tpu_torch.ops        - CUDA kernels (csrc/) and their wrappers
   stt_tpu_torch.artifact   - weights.npz + metadata.json + alphabet.txt
-  stt_tpu_torch.ctc        - greedy decode
+  stt_tpu_torch.ctc        - greedy decode, CTC loss
+  stt_tpu_torch.data       - WAV IO, CSV sources, padded batches
   stt_tpu_torch.decode     - CTC prefix beam search, emission pruning
   stt_tpu_torch.stream     - stateful streaming inference
   stt_tpu_torch.serve      - user-facing Model/Stream API
+  stt_tpu_torch.train      - train/eval steps, checkpoints, the trainer
   stt_tpu_torch.client     - `stt`-style command line client
 """
 

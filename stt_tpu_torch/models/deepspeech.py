@@ -1,18 +1,27 @@
-"""DeepSpeech-style LSTM acoustic model as an nn.Module (inference).
+"""DeepSpeech-style LSTM acoustic model as an nn.Module.
 
 The architecture of `stt_tpu.models.deepspeech`:
   context window (2*n_context+1 frames of n_input MFCCs)
-  -> dense x3 with clipped ReLU (min(relu(x), relu_clip))
+  -> dense x3 with clipped ReLU (min(relu(x), relu_clip)) + dropout
   -> unidirectional LSTM (n_cell_dim), stateful for streaming
-  -> dense with clipped ReLU
+  -> dense with clipped ReLU + dropout
   -> linear dense to n_alphabet+1 logits (blank = last index)
 
 Parameters keep the JAX package's flat names ("layer_1/w", "lstm/kernel"
 [n_in + H, 4H], "lstm/bias", ...) and its i, g, f, o gate order, so
-`state_dict()` is the artifact's weights.npz. The LSTM recurrence runs in
-the Hopper kernel for CUDA tensors and in plain PyTorch for CPU tensors
-(`stt_tpu_torch.ops.lstm_fused` decides by the tensor's device alone).
-Dropout belongs to training, which this package does not port yet.
+`state_dict()` is the artifact's weights.npz. Parameters are trainable;
+serving runs the model under `torch.no_grad()`.
+
+The LSTM takes one of two routes, decided by the grad mode and the
+tensor's device alone: when autograd records, `lstm_train` (the training
+kernels K3/K4, with their backward); otherwise `lstm_fused` (the inference
+kernel K1). On CPU tensors both run their plain PyTorch versions.
+
+Dropout is that of the JAX package's `_dense`: a keep-mask drawn as
+bernoulli(1 - rate), kept values scaled by 1 / (1 - rate), on layers 1-3
+(`dropout_rates[0:3]`) and layer 5 (`dropout_rates[5]`), only when the
+caller passes a `torch.Generator` (the JAX package's `dropout_rng`). The
+masks cannot reproduce JAX's random streams.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import torch
 from torch import nn
 
 from stt_tpu_torch.models.lstm import State
-from stt_tpu_torch.ops import lstm_kernel
+from stt_tpu_torch import ops  # its attributes are read at call time: ops imports models.lstm
 
 NORMED_LAYERS = ("layer_1", "layer_2", "layer_3", "layer_5")
 
@@ -43,8 +52,8 @@ class ModelConfig:
     n_out: int = 29  # alphabet size + 1 (CTC blank, last index)
     relu_clip: float = 20.0
     layer_norm: bool = False
-    # dropout rates for layers [1, 2, 3, lstm(unused), unused, 5]; read by
-    # training only
+    # dropout rates for layers [1, 2, 3, lstm(unused), unused, 5]; used only
+    # when forward is given a dropout generator
     dropout_rates: Tuple[float, ...] = (0.05, 0.05, 0.05, 0.0, 0.0, 0.05)
     compute_dtype: str = "float32"  # or "bfloat16"
 
@@ -120,12 +129,19 @@ class DeepSpeech(nn.Module):
             value = torch.empty(shape, dtype=torch.float32, device=device)
             if generator is not None:
                 _init_(name, value, generator)
-            self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(value))
 
     def param(self, name: str) -> torch.Tensor:
         return getattr(self, name)
 
-    def _dense(self, name: str, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    def _dense(
+        self,
+        name: str,
+        x: torch.Tensor,
+        relu: bool = True,
+        dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         dtype = self.config.dtype
         out = torch.matmul(
             x.to(dtype).float(), self.param(f"{name}/w").to(dtype).float()
@@ -136,35 +152,44 @@ class DeepSpeech(nn.Module):
             out = _layer_norm(
                 out, self.param(f"{name}/ln_scale"), self.param(f"{name}/ln_bias")
             )
+        if generator is not None and dropout_rate > 0.0:
+            keep = 1.0 - dropout_rate
+            mask = torch.bernoulli(torch.full_like(out, keep), generator=generator)
+            out = torch.where(mask.bool(), out / keep, torch.zeros_like(out))
         return out
 
-    @torch.no_grad()
     def forward(
         self,
         features: torch.Tensor,
         seq_len: Optional[torch.Tensor] = None,
         previous_state: Optional[State] = None,
         overlap: bool = True,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, State]:
         """features [B, T, n_input] MFCCs (or [B, T, window_input] with
         overlap=False); seq_len [B] valid frames (None = all); previous_state
-        (c, h) each [B, n_cell_dim] (None = zeros).
+        (c, h) each [B, n_cell_dim] (None = zeros); dropout_generator, on the
+        features' device, turns dropout on.
 
         Returns (logits [B, T, n_out] f32, final LSTM state)."""
         config = self.config
+        rates = config.dropout_rates
+        gen = dropout_generator
         b, t = features.shape[:2]
         x = create_overlapping_windows(features, config.n_context) if overlap else features
         x = x.reshape(b * t, -1)
-        for name in ("layer_1", "layer_2", "layer_3"):
-            x = self._dense(name, x)
+        for i, name in enumerate(("layer_1", "layer_2", "layer_3")):
+            x = self._dense(name, x, dropout_rate=rates[i], generator=gen)
         x = x.reshape(b, t, -1).transpose(0, 1)  # time-major for the LSTM
         lstm = {"kernel": self.param("lstm/kernel"), "bias": self.param("lstm/bias")}
-        outputs, state = lstm_kernel.lstm_fused(
+        records = torch.is_grad_enabled() and (x.requires_grad or lstm["kernel"].requires_grad)
+        recurrence = ops.lstm_train if records else ops.lstm_fused
+        outputs, state = recurrence(
             lstm, x, seq_len=seq_len, initial_state=previous_state,
             compute_dtype=config.dtype,
         )
         x = outputs.transpose(0, 1).reshape(b * t, -1)
-        x = self._dense("layer_5", x)
+        x = self._dense("layer_5", x, dropout_rate=rates[5], generator=gen)
         logits = self._dense("layer_6", x, relu=False)
         return logits.reshape(b, t, config.n_out).float(), state
 

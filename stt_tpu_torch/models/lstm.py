@@ -14,12 +14,14 @@ is each row's state at its last valid frame.
 
 `recurrence` is the plain version of the CUDA kernel behind
 `stt_tpu_torch.ops.lstm_fused`: the wrapper runs it for CPU tensors, and
-the tests and chip_smoke.py hold the kernel against it.
+the tests and chip_smoke.py hold the kernel against it. `steps` is the one
+step both it and the training forward's plain version
+(`stt_tpu_torch.ops.lstm_train.train_forward`) iterate.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -50,7 +52,7 @@ def start_state(
     if initial is None:
         zeros = torch.zeros((batch, n_cell), dtype=torch.float32, device=device)
         return zeros, zeros.clone()
-    return initial[0].float(), initial[1].float()
+    return initial[0].float().contiguous(), initial[1].float().contiguous()
 
 
 def lengths(seq_len: Optional[torch.Tensor], T: int, batch: int, device) -> torch.Tensor:
@@ -58,6 +60,37 @@ def lengths(seq_len: Optional[torch.Tensor], T: int, batch: int, device) -> torc
     if seq_len is None:
         return torch.full((batch,), T, dtype=torch.int32, device=device)
     return seq_len.to(device=device, dtype=torch.int32).reshape(batch)
+
+
+def steps(
+    x_proj: torch.Tensor,
+    w_h: torch.Tensor,
+    c0: torch.Tensor,
+    h0: torch.Tensor,
+    seq: torch.Tensor,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The recurrence step by step: yields (z f32 pre-activations, carried c,
+    carried h, emitted out) for each t. h is rounded to w_h's dtype before
+    each product, which accumulates in f32."""
+    n_cell = x_proj.shape[2] // 4
+    w = w_h.float()
+    c, h = c0, h0
+    for t in range(x_proj.shape[0]):
+        z = x_proj[t].float() + torch.matmul(h.to(w_h.dtype).float(), w)
+        i, g, f, o = z.split(n_cell, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        valid = (t < seq)[:, None]
+        c = torch.where(valid, c_new, c)
+        h = torch.where(valid, h_new, h)
+        yield z, c, h, torch.where(valid, h_new, torch.zeros_like(h_new))
+
+
+def stack(values, empty_shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """torch.stack that gives an empty [0, ...] tensor for no steps."""
+    if not values:
+        return torch.zeros(empty_shape, dtype=dtype, device=device)
+    return torch.stack(values)
 
 
 def recurrence(
@@ -70,25 +103,12 @@ def recurrence(
     """The recurrence over precomputed input projections.
 
     x_proj [T, B, 4H] and w_h [H, 4H] in the compute dtype; c0, h0 [B, H]
-    f32; seq [B] int32 -> (out [T, B, H] f32, (c, h) f32). h is rounded to
-    w_h's dtype before each product, which accumulates in f32."""
-    T, B, four_h = x_proj.shape
-    n_cell = four_h // 4
-    w = w_h.float()
-    c, h = c0, h0
-    outs = []
-    for t in range(T):
-        z = x_proj[t].float() + torch.matmul(h.to(w_h.dtype).float(), w)
-        i, g, f, o = z.split(n_cell, dim=-1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
-        valid = (t < seq)[:, None]
-        c = torch.where(valid, c_new, c)
-        outs.append(torch.where(valid, h_new, torch.zeros_like(h_new)))
-        h = torch.where(valid, h_new, h)
-    if not outs:
-        return x_proj.new_zeros((0, B, n_cell), dtype=torch.float32), (c, h)
-    return torch.stack(outs), (c, h)
+    f32; seq [B] int32 -> (out [T, B, H] f32, (c, h) f32)."""
+    _, B, four_h = x_proj.shape
+    c, h, outs = c0, h0, []
+    for _, c, h, out in steps(x_proj, w_h, c0, h0, seq):
+        outs.append(out)
+    return stack(outs, (0, B, four_h // 4), device=x_proj.device), (c, h)
 
 
 def lstm_scan(

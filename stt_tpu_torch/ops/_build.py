@@ -1,9 +1,12 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's CUDA sources into shared libraries, load them, and call
+their entry points.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for sm_90a into
 `build/kernels/lib<name>.so` at the root of the checkout, the first time a
-wrapper needs it, and again only when the source is newer than the
-library. The library has a plain C interface and is loaded with ctypes.
+wrapper needs it, and again only when the source or a `csrc/*.cuh` header
+is newer than the library. The library has a plain C interface and is
+loaded with ctypes; `check_tensors` and `launch` are what every wrapper
+does around a call.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -44,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    header in csrc/ (the sources share lstm_step.cuh)."""
     lib = library_path(name)
-    return not lib.exists() or lib.stat().st_mtime < sources()[name].stat().st_mtime
+    inputs = [sources()[name], *CSRC.glob("*.cuh")]
+    return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: Iterable[str] = ()) -> Dict[str, str]:
@@ -83,3 +91,29 @@ def load(name: str) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu`, building it if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def check_tensors(expected: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]], device) -> None:
+    """Raise unless each named tensor has its shape and dtype, lies on
+    `device` and is contiguous, as the kernels take their arguments."""
+    for name, (tensor, shape, dtype) in expected.items():
+        if tuple(tensor.shape) != shape or tensor.dtype != dtype:
+            raise ValueError(
+                f"{name} must be {shape} {dtype}, got {tuple(tensor.shape)} {tensor.dtype}"
+            )
+        if tensor.device != device:
+            raise ValueError(f"{name} is on {tensor.device}, expected {device}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LSTM kernel for device {device}")
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """Call the entry point `fn` with `args` and the current stream of
+    `device`; raise if it reports a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -22,15 +22,14 @@ from stt_tpu_torch.models.lstm import (
     recurrence,
     start_state,
 )
+from stt_tpu_torch.ops._build import check_tensors, launch, load
 
 _ENTRY = {torch.float32: "lstm_recurrence_f32", torch.bfloat16: "lstm_recurrence_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
 def _library_function(dtype: torch.dtype):
-    from stt_tpu_torch.ops import _build
-
-    fn = getattr(_build.load("lstm_recurrence"), _ENTRY[dtype])
+    fn = getattr(load("lstm_recurrence"), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -46,24 +45,13 @@ def _check(x_proj, w_h, c0, h0, seq) -> None:
             f"x_proj and w_h must both be float32 or bfloat16, got "
             f"{x_proj.dtype} and {w_h.dtype}"
         )
-    expected = {
+    check_tensors({
+        "x_proj": (x_proj, (T, B, four_h), x_proj.dtype),
         "w_h": (w_h, (H, four_h), w_h.dtype),
         "c0": (c0, (B, H), torch.float32),
         "h0": (h0, (B, H), torch.float32),
         "seq": (seq, (B,), torch.int32),
-    }
-    for name, (tensor, shape, dtype) in expected.items():
-        if tuple(tensor.shape) != shape or tensor.dtype != dtype:
-            raise ValueError(
-                f"{name} must be {shape} {dtype}, got "
-                f"{tuple(tensor.shape)} {tensor.dtype}"
-            )
-    for name, tensor in [("w_h", w_h), ("c0", c0), ("h0", h0), ("seq", seq)]:
-        if tensor.device != x_proj.device:
-            raise ValueError(f"{name} is on {tensor.device}, x_proj on {x_proj.device}")
-    for name, tensor in [("x_proj", x_proj), ("w_h", w_h), ("seq", seq)]:
-        if not tensor.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    }, x_proj.device)
 
 
 def lstm_recurrence(
@@ -78,8 +66,6 @@ def lstm_recurrence(
     _check(x_proj, w_h, c0, h0, seq)
     if x_proj.device.type == "cpu":
         return recurrence(x_proj, w_h, c0, h0, seq)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"no LSTM kernel for device {x_proj.device}")
     T, B, four_h = x_proj.shape
     H = four_h // 4
     device = x_proj.device
@@ -89,16 +75,12 @@ def lstm_recurrence(
     out = torch.empty((T, B, H), dtype=torch.float32, device=device)
     if T == 0:
         return out, (c, h[0])
-    with torch.cuda.device(device):
-        fn = _library_function(x_proj.dtype)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        lstm_recurrence.launches += 1
-        err = fn(
-            x_proj.data_ptr(), w_h.data_ptr(), c.data_ptr(), h.data_ptr(),
-            seq.data_ptr(), out.data_ptr(), T, B, H, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"lstm_recurrence kernel launch failed: CUDA error {err}")
+    lstm_recurrence.launches += 1
+    launch(
+        _library_function(x_proj.dtype), "lstm_recurrence", device,
+        x_proj.data_ptr(), w_h.data_ptr(), c.data_ptr(), h.data_ptr(),
+        seq.data_ptr(), out.data_ptr(), T, B, H,
+    )
     return out, (c, h[T % 2])
 
 

@@ -15,7 +15,8 @@
   STT_FinishStreamWithMetadata -> stream.finish_stream_with_metadata(n)
 
 The model runs on the card (device="cuda") unless the caller passes
-device="cpu". The external scorer and int8 inference are not ported yet
+device="cpu", always under torch.no_grad(), so its LSTM takes the inference
+kernel (K1) and never the training kernels. The external scorer and int8 inference are not ported yet
 and raise NotImplementedError.
 """
 
@@ -146,6 +147,7 @@ class Model:
         text = stream.finish_stream()
         return text, stream._state.probs_history
 
+    @torch.no_grad()
     def infer_logits(self, features, lengths) -> torch.Tensor:
         """Batched acoustic forward [B, T, n_mfcc] -> [B, T, n_out] f32
         logits on the model's device."""

@@ -76,6 +76,7 @@ class StreamingRuntime:
     def mfcc(self, audio: np.ndarray) -> torch.Tensor:
         return audio_to_mfcc(torch.from_numpy(audio).to(self.device), self.feature_config)
 
+    @torch.no_grad()
     def window_infer(self, stacked: torch.Tensor, valid: int, c: torch.Tensor, h: torch.Tensor):
         """stacked [n_context + N_STEPS + n_context, n_input] frames ->
         (probs [N_STEPS, C], c', h'); rows past `valid` are padding."""

@@ -1,0 +1,221 @@
+"""The training driver: epochs, dev evaluation, checkpoints, early stop,
+plateau learning-rate reduction, non-finite batch reporting (the
+counterpart of `stt_tpu.train.trainer`, on one device).
+
+- Before training, a dummy run over the longest samples fails fast on an
+  out-of-memory batch.
+- A step's metrics are fetched three steps late, so the host keeps
+  queueing work for the card instead of waiting on each step.
+- A step whose loss is not finite for some samples names them.
+- `last` is saved every `checkpoint_secs` and after every epoch;
+  `best_dev` whenever the dev loss improves.
+- Early stop after `es_epochs` epochs without an improvement of
+  `es_min_delta`; on a plateau of `plateau_epochs` the best checkpoint is
+  reloaded and the learning rate (Adam's param_groups) shrinks by
+  `plateau_reduction`.
+- Scalars go to `summary_dir/scalars.jsonl`.
+
+The step runs on the card unless the caller passes device="cpu".
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+
+from stt_tpu_torch.config import SttConfig, log_error, log_info
+from stt_tpu_torch.data.feeding import create_batches
+from stt_tpu_torch.data.sources import samples_from_sources
+from stt_tpu_torch.device import resolve_device
+from stt_tpu_torch.train.checkpoints import CheckpointManager, load_or_init_graph_for_training
+from stt_tpu_torch.train.step import (
+    TrainState,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    make_train_step_audio,
+)
+
+METRICS_LAG = 3  # steps between a step's dispatch and the fetch of its metrics
+
+
+def set_learning_rate(state: TrainState, lr: float) -> None:
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+
+
+def get_learning_rate(state: TrainState) -> float:
+    return float(state.optimizer.param_groups[0]["lr"])
+
+
+def make_summary_writer(summary_dir: str) -> Optional[Callable[[int, dict], None]]:
+    """Scalar logger writing one JSON line per call to
+    summary_dir/scalars.jsonl, or None without a directory."""
+    if not summary_dir:
+        return None
+    os.makedirs(summary_dir, exist_ok=True)
+    path = os.path.join(summary_dir, "scalars.jsonl")
+
+    def write(step: int, scalars: dict) -> None:
+        with open(path, "a") as f:
+            f.write(json.dumps({"step": step, **scalars}) + "\n")
+
+    return write
+
+
+def train(config: SttConfig, device="cuda") -> TrainState:
+    device = resolve_device(device)
+    alphabet = config.resolve_alphabet()
+    model_config = config.model_config(training=True)
+    feature_config = config.feature_config
+    state = create_train_state(
+        model_config, seed=config.seed, device=device, learning_rate=config.learning_rate,
+        beta1=config.beta1, beta2=config.beta2, epsilon=config.epsilon,
+    )
+
+    manager: Optional[CheckpointManager] = None
+    if config.save_checkpoint_dir:
+        manager = CheckpointManager(config.save_checkpoint_dir, max_to_keep=config.max_to_keep)
+        manager.save_run_files(config.to_dict(), alphabet.serialize_text())
+
+    method = "init"
+    if config.load_checkpoint_dir:
+        state, method = load_or_init_graph_for_training(
+            CheckpointManager(config.load_checkpoint_dir, config.max_to_keep), state,
+            load_train=config.load_train, drop_source_layers=config.drop_source_layers,
+        )
+    log_info(f"Initialized model from '{method}'")
+    if method != "init" and config.force_initialize_learning_rate:
+        set_learning_rate(state, config.learning_rate)
+        log_info(f"Re-initialized learning rate to {config.learning_rate} "
+                 "(--force_initialize_learning_rate)")
+
+    if config.device_featurize:
+        train_step = make_train_step_audio(feature_config)
+    else:
+        train_step = make_train_step()
+    eval_step = make_eval_step()
+    step_seed = config.seed + 1
+
+    train_samples = list(samples_from_sources(config.train_files, labeled=True))
+
+    def batches(epoch: int, reverse=False, limit=0):
+        return create_batches(
+            train_samples, alphabet, feature_config, batch_size=config.train_batch_size,
+            train_phase=True, epoch=epoch, reverse=reverse, limit=limit,
+            shuffle_batches=config.shuffle_batches, device_featurize=config.device_featurize,
+        )
+
+    def run_eval_epoch(files: List[str]) -> float:
+        losses: List[float] = []
+        for batch, _ in create_batches(files, alphabet, feature_config,
+                                       batch_size=config.dev_batch_size):
+            batch_losses, _ = eval_step(state.model, batch.to(device))
+            losses.extend(batch_losses.cpu().tolist())
+        finite = [l for l in losses if np.isfinite(l)]
+        return float(np.mean(finite)) if finite else float("inf")
+
+    # dummy run: the longest samples first, to find an out-of-memory batch
+    if config.limit_train >= 0 and train_samples:
+        probe_limit = min(config.train_batch_size * 2, len(train_samples))
+        for batch, _ in batches(0, reverse=True, limit=probe_limit):
+            state, _ = train_step(state, batch.to(device), step_seed)
+            break
+        log_info("Dummy run (longest samples) OK: no out-of-memory")
+
+    best_dev_loss = manager.best_dev_loss() if manager else float("inf")
+    epochs_without_improvement = 0
+    last_save = time.time()
+    frame_seconds = feature_config.step_samples / feature_config.sample_rate
+    summary_writer = make_summary_writer(config.summary_dir)
+
+    for epoch in range(config.epochs):
+        epoch_losses: List[float] = []
+        epoch_audio_s = 0.0
+        t0 = time.time()
+        pending: List[tuple] = []  # (step, metrics, ids)
+
+        def drain_metrics(entry) -> None:
+            step_no, metrics, ids = entry
+            loss = metrics.loss.item()
+            epoch_losses.append(loss)
+            if summary_writer is not None:
+                summary_writer(step_no, {"train/step_loss": loss})
+            bad = metrics.non_finite.cpu().numpy()
+            if bad.any():
+                bad_ids = [i for i, b in zip(ids, bad[: len(ids)]) if b]
+                log_error(f"Non-finite loss in step {step_no}; offending samples: {bad_ids}")
+
+        for batch, ids in batches(epoch):
+            epoch_audio_s += float(batch.feature_lengths.sum()) * frame_seconds
+            state, metrics = train_step(state, batch.to(device), step_seed)
+            pending.append((state.step, metrics, ids))
+            if len(pending) > METRICS_LAG:
+                drain_metrics(pending.pop(0))
+            if manager is not None and time.time() - last_save > config.checkpoint_secs:
+                manager.save(state, "last")
+                last_save = time.time()
+        for entry in pending:
+            drain_metrics(entry)
+        mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
+        epoch_wall = time.time() - t0
+        throughput = epoch_audio_s / max(epoch_wall, 1e-9)
+        msg = (f"Epoch {epoch} | train loss {mean_loss:.4f} | {epoch_wall:.1f}s | "
+               f"{throughput:.1f} audio-s/s | lr {get_learning_rate(state):.6f}")
+        if summary_writer is not None:
+            summary_writer(state.step, {
+                "train/epoch_loss": mean_loss,
+                "train/audio_seconds_per_second": throughput,
+                "train/learning_rate": get_learning_rate(state),
+            })
+
+        dev_loss = None
+        if config.dev_files:
+            dev_loss = run_eval_epoch(config.dev_files)
+            msg += f" | dev loss {dev_loss:.4f}"
+            if summary_writer is not None:
+                summary_writer(state.step, {"dev/loss": dev_loss})
+        # metrics datasets are tracked each epoch but steer nothing
+        for metrics_csv in config.metrics_files:
+            m_loss = run_eval_epoch([metrics_csv])
+            name = os.path.basename(metrics_csv)
+            msg += f" | metrics[{name}] loss {m_loss:.4f}"
+            if summary_writer is not None:
+                summary_writer(state.step, {f"metrics/{name}_loss": m_loss})
+        log_info(msg)
+
+        if dev_loss is not None:
+            if dev_loss < best_dev_loss - config.es_min_delta:
+                epochs_without_improvement = 0
+            else:
+                epochs_without_improvement += 1
+            if manager is not None and dev_loss < best_dev_loss:
+                manager.save(state, "best_dev", dev_loss=dev_loss)
+            best_dev_loss = min(best_dev_loss, dev_loss)
+        if manager is not None:
+            manager.save(state, "last")
+            last_save = time.time()
+
+        if config.early_stop and epochs_without_improvement >= config.es_epochs:
+            log_info(f"Early stop triggered: dev loss has not improved by more than "
+                     f"{config.es_min_delta} in {config.es_epochs} epochs")
+            break
+
+        if (config.reduce_lr_on_plateau and manager is not None
+                and epochs_without_improvement > 0
+                and epochs_without_improvement % config.plateau_epochs == 0):
+            try:
+                manager.restore(state, "best_dev")
+            except FileNotFoundError:
+                pass
+            new_lr = get_learning_rate(state) * config.plateau_reduction
+            set_learning_rate(state, new_lr)
+            log_info(f"Plateau: reloaded best checkpoint, reduced LR to {new_lr}")
+
+    if manager is not None:
+        manager.save(state, "last")
+    return state

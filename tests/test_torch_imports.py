@@ -28,10 +28,16 @@ def test_every_module_imports_without_jax_or_stt_tpu():
         import chip_smoke
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "stt_tpu")]
         assert not bad, bad
+        training = {"stt_tpu_torch.ctc.loss", "stt_tpu_torch.ops.lstm_train",
+                    "stt_tpu_torch.config", "stt_tpu_torch.data.sources",
+                    "stt_tpu_torch.data.feeding", "stt_tpu_torch.train.step",
+                    "stt_tpu_torch.train.checkpoints", "stt_tpu_torch.train.trainer",
+                    "stt_tpu_torch.train.__main__"}
+        assert training <= set(names), training - set(names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 29
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():
@@ -73,6 +79,26 @@ def test_model_defaults_to_cuda_and_raises_without_it(tmp_path):
             assert "CUDA is not available" in str(e)
         else:
             raise AssertionError("Model(path) ran without CUDA")
+    """, CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
+    proc = run(f"""
+        import torch
+        from stt_tpu_torch.config import SttConfig
+        from stt_tpu_torch.train.trainer import train
+        assert not torch.cuda.is_available()
+        alphabet = {str(tmp_path / "alphabet.txt")!r}
+        open(alphabet, "w").write("a\\nb\\n")
+        try:
+            train(SttConfig(alphabet_config_path=alphabet, n_hidden=8, epochs=1))
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("train(config) ran without CUDA")
+        state = train(SttConfig(alphabet_config_path=alphabet, n_hidden=8, epochs=1), device="cpu")
+        assert state.step == 0 and next(state.model.parameters()).device.type == "cpu"
     """, CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0, proc.stderr
 

@@ -1,5 +1,7 @@
 """The port's DeepSpeech forward against stt_tpu.models.apply_model on the
-CPU, with parameters carried across by params_from_numpy.
+CPU, with parameters carried across by params_from_numpy: the inference
+route (under no_grad, K1's plain version) and the training route (autograd
+recording, the plain versions of K3/K4).
 
 Tolerance on logits and (c, h): 1e-5 in f32 and bf16 (five layers of
 float32 products summed in another order; both sides round to bf16 at the
@@ -59,10 +61,11 @@ def test_forward_matches_apply_model(dtype, layer_norm):
         params, jnp.asarray(feats), seq_len=jnp.asarray(seq), config=jax_cfg,
         previous_state=tuple(map(jnp.asarray, state)),
     )
-    got, (c, h) = model(
-        torch.from_numpy(feats), seq_len=torch.from_numpy(seq),
-        previous_state=tuple(map(torch.from_numpy, state)),
-    )
+    with torch.no_grad():
+        got, (c, h) = model(
+            torch.from_numpy(feats), seq_len=torch.from_numpy(seq),
+            previous_state=tuple(map(torch.from_numpy, state)),
+        )
     assert got.dtype == torch.float32 and got.shape == want.shape
     tol = BF16_LAYER_NORM_TOL if layer_norm and dtype == "bfloat16" else TOL[dtype]
     for g, w in ((got, want), (c, c_want), (h, h_want)):
@@ -74,7 +77,8 @@ def test_forward_without_lengths_or_state():
     params = jax.device_get(init_params(jax.random.PRNGKey(3), jax_cfg))
     feats, _, _ = inputs(4, B=1, T=16)
     want, _ = apply_model(params, jnp.asarray(feats), config=jax_cfg)
-    got, _ = params_from_numpy(params, cfg)(torch.from_numpy(feats))
+    with torch.no_grad():
+        got, _ = params_from_numpy(params, cfg)(torch.from_numpy(feats))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL["float32"])
 
 
@@ -95,3 +99,54 @@ def test_state_dict_keeps_the_flat_names_and_init_ranges():
             assert np.abs(got).max() <= limit * 1.05 and np.abs(got).max() >= limit * 0.9, name
         else:
             np.testing.assert_array_equal(got, value, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_route_forward_matches_apply_model(dtype):
+    """With autograd recording, the LSTM runs lstm_train; values are the
+    same function."""
+    from stt_tpu_torch.ops import lstm_recurrence, lstm_train_fwd
+
+    jax_cfg, cfg = configs(dtype)
+    params = jax.device_get(init_params(jax.random.PRNGKey(5), jax_cfg))
+    model = params_from_numpy(params, cfg)
+    feats, seq, _ = inputs(6)
+    want, (c_want, h_want) = apply_model(params, jnp.asarray(feats), seq_len=jnp.asarray(seq),
+                                         config=jax_cfg)
+    calls = []
+    for fn in (lstm_recurrence, lstm_train_fwd):
+        calls.append(fn.launches)
+    got, (c, h) = model(torch.from_numpy(feats), seq_len=torch.from_numpy(seq))
+    assert got.requires_grad
+    # CPU tensors take the plain versions, which count no launches
+    assert [lstm_recurrence.launches, lstm_train_fwd.launches] == calls
+    for g, w in ((got, want), (c, c_want), (h, h_want)):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=0, atol=TOL[dtype])
+
+
+def test_dropout_masks_and_scales_like_the_jax_dense():
+    """Dropout only with a generator; the kept share is 1 - rate and kept
+    values are scaled by 1 / (1 - rate); the same generator seed gives the
+    same masks."""
+    rate = 0.25
+    cfg = ModelConfig(**dict(GEOMETRY, dropout_rates=(rate, rate, rate, 0.0, 0.0, rate)))
+    model = DeepSpeech(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.rand(4000, GEOMETRY["n_hidden"]) + 0.5
+    model.get_parameter("layer_2/b").data.zero_()
+    plain = model._dense("layer_2", x)
+    dropped = model._dense("layer_2", x, dropout_rate=rate,
+                           generator=torch.Generator().manual_seed(1))
+    kept = dropped != 0
+    live = plain != 0  # the clipped ReLU zeroes some values before dropout
+    assert abs(kept[live].float().mean().item() - (1 - rate)) < 0.01
+    np.testing.assert_allclose(dropped[kept].detach().numpy(),
+                               (plain[kept] / (1 - rate)).detach().numpy(), rtol=1e-6)
+    feats = torch.from_numpy(inputs(7)[0])
+    with torch.no_grad():
+        a, _ = model(feats, dropout_generator=torch.Generator().manual_seed(3))
+        b, _ = model(feats, dropout_generator=torch.Generator().manual_seed(3))
+        c, _ = model(feats, dropout_generator=torch.Generator().manual_seed(4))
+        d, _ = model(feats)
+        e, _ = model(feats)
+    assert torch.equal(a, b) and not torch.equal(a, c) and torch.equal(d, e)
+    assert not torch.equal(a, d)

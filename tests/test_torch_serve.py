@@ -164,3 +164,29 @@ def test_client_json_and_unported_flags(artifacts, tmp_path, capsys):
                         "--scorer", "lm.scorer", "--device", "cpu"]) == 2
     assert "not ported" in capsys.readouterr().err
     assert os.path.exists(wav)
+
+
+def test_serving_takes_the_inference_route(models, monkeypatch):
+    """Serving runs under no_grad, so its LSTM is lstm_fused (K1 on the
+    card) and never lstm_train (K3/K4), although the parameters are
+    trainable."""
+    from stt_tpu_torch import ops
+
+    _, port = models
+    assert all(p.requires_grad for p in port._runtime.model.parameters())
+    calls = []
+    fused = ops.lstm_fused
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return fused(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("serving reached the training recurrence")
+
+    monkeypatch.setattr(ops, "lstm_fused", counting)
+    monkeypatch.setattr(ops, "lstm_train", refuse)
+    port.stt(speech_like(3, 1.2))
+    logits = port.infer_logits(np.zeros((2, 20, 26), np.float32), [20, 11])
+    assert not logits.requires_grad
+    assert len(calls) >= 2

@@ -1,0 +1,256 @@
+"""The port's data feeding, checkpoints, config and training driver, on the
+CPU at a tiny width:
+
+- `create_batches` against `stt_tpu.data.feeding.create_batches` on one
+  CSV of synthetic WAVs: batch order, labels and lengths exactly equal,
+  features within 1e-4 (the port's torch frontend against the JAX
+  package's numpy frontend; the frontends agree to ~2e-6 relative and
+  MFCCs here reach ~50);
+- a tiny run whose training loss falls;
+- the checkpoint layout, retention, half-written saves, a resume that
+  continues the step counter, --force_initialize_learning_rate, best_dev,
+  early stop and the plateau;
+- flag parsing against `stt_tpu.config.parse_flags`, the flags that are
+  not ported, and `python -m stt_tpu_torch.train`.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from stt_tpu.config import parse_flags as jax_parse_flags
+from stt_tpu.data.feeding import create_batches as jax_create_batches
+from stt_tpu.alphabet import Alphabet as JaxAlphabet
+from stt_tpu.frontend import FeatureConfig as JaxFeatureConfig
+from stt_tpu_torch.alphabet import Alphabet
+from stt_tpu_torch.config import SttConfig, parse_flags
+from stt_tpu_torch.data.feeding import create_batches
+from stt_tpu_torch.data.sources import CSVWriter, Sample, samples_from_sources
+from stt_tpu_torch.frontend import FeatureConfig
+from stt_tpu_torch.train.checkpoints import (
+    CheckpointManager,
+    drop_layers,
+    load_graph_for_evaluation,
+    load_or_init_graph_for_training,
+)
+from stt_tpu_torch.train.step import create_train_state
+from stt_tpu_torch.train.trainer import get_learning_rate, train
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LABELS = list(" abcdefgh")
+FEATURE_TOL = 1e-4
+
+
+def utterance(rs, seconds):
+    n = int(seconds * 16000)
+    t = np.arange(n) / 16000
+    audio = sum(rs.uniform(0.05, 0.2) * np.sin(2 * np.pi * rs.uniform(90, 400) * t)
+                for _ in range(3)) + 0.02 * rs.randn(n)
+    return np.clip(audio, -1, 1).astype(np.float32)
+
+
+def write_csv(path, rs, n, seconds=(0.4, 1.0)):
+    with CSVWriter(str(path)) as writer:
+        for i in range(n):
+            text = "".join(rs.choice(LABELS[1:], rs.randint(2, 5)))
+            writer.add(Sample(f"s{i}", text, _audio=utterance(rs, rs.uniform(*seconds)),
+                              _rate=16000))
+    return str(path)
+
+
+@pytest.fixture
+def dataset(tmp_path):
+    rs = np.random.RandomState(0)
+    alphabet = tmp_path / "alphabet.txt"
+    alphabet.write_text("".join(label + "\n" for label in LABELS))
+    return {
+        "train": write_csv(tmp_path / "train.csv", rs, 7),
+        "dev": write_csv(tmp_path / "dev.csv", rs, 3),
+        "alphabet": str(alphabet),
+        "dir": tmp_path,
+    }
+
+
+def tiny_config(dataset, **kw):
+    args = dict(
+        train_files=[dataset["train"]], dev_files=[dataset["dev"]],
+        alphabet_config_path=dataset["alphabet"], n_hidden=32, train_batch_size=3,
+        dev_batch_size=2, epochs=1, dropout_rate=0.0, learning_rate=0.003, seed=1,
+    )
+    args.update(kw)
+    return SttConfig(**args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=3),
+    dict(batch_size=3, train_phase=True, epoch=1),
+    dict(batch_size=2, train_phase=True, epoch=0, drop_remainder=True),
+    dict(batch_size=2, reverse=True, limit=4),
+    dict(batch_size=3, device_featurize=True),
+])
+def test_create_batches_matches_jax(dataset, kw):
+    want = list(jax_create_batches([dataset["train"]], JaxAlphabet(dataset["alphabet"]),
+                                   JaxFeatureConfig(), **kw))
+    got = list(create_batches([dataset["train"]], Alphabet(dataset["alphabet"]),
+                              FeatureConfig(), **kw))
+    assert [ids for _, ids in got] == [ids for _, ids in want]
+    for (batch, _), (jbatch, _) in zip(got, want):
+        for name in ("feature_lengths", "labels", "label_lengths"):
+            np.testing.assert_array_equal(getattr(batch, name).numpy(),
+                                          np.asarray(getattr(jbatch, name)), err_msg=name)
+        assert batch.features.shape == jbatch.features.shape
+        atol = 0 if kw.get("device_featurize") else FEATURE_TOL
+        np.testing.assert_allclose(batch.features.numpy(), np.asarray(jbatch.features),
+                                   rtol=0, atol=atol)
+
+
+def test_sources_merge_and_refuse_what_is_not_ported(dataset):
+    merged = list(samples_from_sources([dataset["train"], dataset["dev"]]))
+    assert len(merged) == 10
+    hints = [s.duration_hint for s in merged]
+    assert hints == sorted(hints)
+    with pytest.raises(NotImplementedError, match="P6"):
+        list(samples_from_sources([str(dataset["dir"] / "x.sdb")]))
+    with pytest.raises(NotImplementedError, match="P6"):
+        list(create_batches([dataset["train"]], Alphabet(dataset["alphabet"]),
+                            augmentations=["volume"]))
+
+
+def test_training_loss_falls_and_checkpoints_are_laid_out(dataset):
+    ckpt = dataset["dir"] / "ckpt"
+    summary = dataset["dir"] / "summary"
+    state = train(tiny_config(dataset, epochs=12, checkpoint_dir=str(ckpt),
+                              summary_dir=str(summary), max_to_keep=2), device="cpu")
+    # one dummy step, then three batches an epoch
+    assert state.step == 1 + 12 * 3
+    rows = [json.loads(line) for line in open(summary / "scalars.jsonl")]
+    epoch_losses = [r["train/epoch_loss"] for r in rows if "train/epoch_loss" in r]
+    assert len(epoch_losses) == 12 and np.isfinite(epoch_losses).all()
+    assert epoch_losses[-1] < 0.5 * epoch_losses[0], epoch_losses
+    assert sorted(os.listdir(ckpt)) == ["alphabet.txt", "best_dev", "config.json", "last",
+                                        "meta.json"]
+    meta = json.load(open(ckpt / "meta.json"))
+    manager = CheckpointManager(str(ckpt), max_to_keep=2)
+    assert meta["last"] == state.step and manager.steps("last") == [state.step - 3, state.step]
+    assert meta["best_dev"] == manager.latest_step("best_dev")
+    assert meta["best_dev_dev_loss"] == manager.best_dev_loss() < float("inf")
+    assert json.load(open(ckpt / "config.json"))["n_hidden"] == 32
+    # a half-written save is skipped
+    os.makedirs(ckpt / "last" / f"step_{state.step + 5}.tmp-123")
+    assert manager.latest_step("last") == state.step
+    saved = manager.read("last")
+    for name, value in state.params.items():
+        assert torch.equal(saved["params"][name], value.detach())
+
+
+def test_resume_continues_the_step_and_resets_the_learning_rate(dataset):
+    ckpt = str(dataset["dir"] / "ckpt")
+    first = train(tiny_config(dataset, epochs=1, checkpoint_dir=ckpt), device="cpu")
+    assert first.step == 4
+    # shrink the saved learning rate, as a plateau would have
+    manager = CheckpointManager(ckpt)
+    saved = manager.read("last")
+    saved["opt_state"]["param_groups"][0]["lr"] = 1e-5
+    torch.save(saved, os.path.join(ckpt, "last", "step_4", "state.pt"))
+
+    resumed = train(tiny_config(dataset, epochs=1, checkpoint_dir=ckpt, load_train="last"),
+                    device="cpu")
+    assert resumed.step == 8
+    assert get_learning_rate(resumed) == pytest.approx(1e-5)
+    reset = train(tiny_config(dataset, epochs=1, checkpoint_dir=ckpt, load_train="last",
+                              force_initialize_learning_rate=True), device="cpu")
+    assert reset.step == 12 and get_learning_rate(reset) == pytest.approx(0.003)
+
+
+def test_early_stop_and_plateau(dataset, capsys):
+    ckpt = str(dataset["dir"] / "ckpt")
+    # a learning rate of 0 never improves the dev loss: every epoch after
+    # the first counts as one without improvement
+    state = train(tiny_config(dataset, epochs=10, learning_rate=0.0, checkpoint_dir=ckpt,
+                              early_stop=True, es_epochs=3, reduce_lr_on_plateau=True,
+                              plateau_epochs=2, plateau_reduction=0.5), device="cpu")
+    out = capsys.readouterr().out
+    assert "Early stop triggered" in out
+    assert out.count("Plateau: reloaded best checkpoint") == 1
+    # epoch 0 (steps 2-4) improves on inf and saves best_dev at step 4;
+    # epochs 1 and 2 do not improve, so the plateau after epoch 2 reloads
+    # step 4, as the JAX trainer does; epoch 3 is the third without an
+    # improvement and stops the run at step 4 + 3
+    assert state.step == 7
+    assert CheckpointManager(ckpt).steps("best_dev") == [4]
+
+
+def test_drop_layers_and_load_orders(tmp_path):
+    from stt_tpu_torch.models import ModelConfig
+
+    config = ModelConfig(n_hidden=16, n_cell_dim=16, n_out=5)
+    trained = create_train_state(config, seed=1, device="cpu")
+    trained.step = 7
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(trained, "last")
+    fresh = create_train_state(config, seed=2, device="cpu")
+    fresh_params = {k: v.detach().clone() for k, v in fresh.params.items()}
+    state, method = load_or_init_graph_for_training(manager, fresh, drop_source_layers=2)
+    assert method == "last" and state.step == 0
+    for name, value in state.params.items():
+        source = fresh_params if name.split("/")[0] in ("layer_6", "layer_5") else trained.params
+        assert torch.equal(value.detach(), source[name].detach()), name
+    dropped = drop_layers(fresh_params, {k: v.detach() for k, v in trained.params.items()}, 9)
+    assert torch.equal(dropped["layer_1/w"], trained.params["layer_1/w"].detach())
+    assert torch.equal(dropped["layer_2/w"], fresh_params["layer_2/w"])
+
+    state, method = load_graph_for_evaluation(manager, create_train_state(config, device="cpu"))
+    assert method == "last" and state.step == 7
+    with pytest.raises(FileNotFoundError):
+        load_or_init_graph_for_training(manager, fresh, load_train="best")
+    assert load_or_init_graph_for_training(CheckpointManager(str(tmp_path / "none")), fresh)[1] == "init"
+
+
+ARGV = ["--train_files", "a.csv,b.csv", "--dev_files", "d.csv", "--n_hidden", "64",
+        "--early_stop", "--dropout_rate", "0.1", "--dropout_rate3", "0.2", "--epochs", "3",
+        "--compute_dtype", "bfloat16", "--checkpoint_dir", "/tmp/ck", "--shuffle_batches",
+        "false", "--learning_rate", "0.0005"]
+
+
+def test_flags_parse_like_the_jax_package():
+    got = parse_flags(ARGV).to_dict()
+    want = jax_parse_flags(ARGV).to_dict()
+    assert set(got) == set(want)
+    assert got == want
+    assert got["dropout_rate2"] == 0.1 and got["dropout_rate3"] == 0.2
+    assert got["load_checkpoint_dir"] == got["save_checkpoint_dir"] == "/tmp/ck"
+
+
+@pytest.mark.parametrize("argv,where", [
+    (["--scorer_path", "x.scorer"], "P2"),
+    (["--augment", "volume"], "P6"),
+    (["--feature_cache", "/tmp/c"], "P6"),
+    (["--export_dir", "/tmp/e"], "M9"),
+    (["--num_processes", "2"], "M13"),
+    (["--n_model_parallel", "2"], "M13"),
+    (["--profile_dir", "/tmp/p"], "P6"),
+])
+def test_flags_of_unported_parts_raise(argv, where):
+    with pytest.raises(NotImplementedError, match=where):
+        parse_flags(argv)
+
+
+def test_train_module_runs_on_the_cpu_when_asked(dataset):
+    args = ["--device", "cpu", "--train_files", dataset["train"], "--alphabet_config_path",
+            dataset["alphabet"], "--n_hidden", "16", "--train_batch_size", "4", "--epochs", "1",
+            "--checkpoint_dir", str(dataset["dir"] / "cli")]
+    env = {**os.environ, "PYTHONPATH": ROOT, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-m", "stt_tpu_torch.train", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "Epoch 0 | train loss" in proc.stdout
+    assert json.load(open(dataset["dir"] / "cli" / "meta.json"))["last"] == 3
+    # without --device the card is asked for, and there is none here
+    proc = subprocess.run([sys.executable, "-m", "stt_tpu_torch.train", *args[2:]], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr

@@ -18,10 +18,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import test_torch_ctc as ctc  # noqa: E402
 import test_torch_decode as dec  # noqa: E402
 import test_torch_lstm as lst  # noqa: E402
+import test_torch_lstm_train as ltr  # noqa: E402
 import test_torch_model as mod  # noqa: E402
 import test_torch_serve as srv  # noqa: E402
+import test_torch_train_step as stp  # noqa: E402
 from stt_tpu.artifact import build_metadata, save_artifact  # noqa: E402
 from stt_tpu.frontend import FeatureConfig as JaxFeatureConfig  # noqa: E402
 from stt_tpu.frontend import audio_to_mfcc as jax_audio_to_mfcc  # noqa: E402
@@ -62,9 +65,10 @@ def main():
         feats, seq, state = mod.inputs(2)
         want, (c_w, h_w) = apply_model(params, jnp.asarray(feats), seq_len=jnp.asarray(seq),
                                        config=jax_cfg, previous_state=tuple(map(jnp.asarray, state)))
-        got, (c, h) = params_from_numpy(params, cfg)(
-            torch.from_numpy(feats), seq_len=torch.from_numpy(seq),
-            previous_state=tuple(map(torch.from_numpy, state)))
+        with torch.no_grad():
+            got, (c, h) = params_from_numpy(params, cfg)(
+                torch.from_numpy(feats), seq_len=torch.from_numpy(seq),
+                previous_state=tuple(map(torch.from_numpy, state)))
         name = "models.DeepSpeech.forward (logits, c, h)" + (", layer norm" if layer_norm else "")
         rows.append((name, "models.apply_model", dtype, maxdiff([(got, want), (c, c_w), (h, h_w)])))
 
@@ -93,10 +97,85 @@ def main():
         rows.append(("serve.Model.stt (transcript)", "serve.Model.stt", "float32",
                      "equal" if text == want_text else "differs"))
 
+    rows.extend(training_rows())
+
     print("| port (stt_tpu_torch.) | held against (stt_tpu.) | dtype | max abs diff, CPU |")
     print("|---|---|---|---|")
     for port, ref, dtype, diff in rows:
         print(f"| `{port}` | `{ref}` | {dtype} | {diff if isinstance(diff, str) else f'{diff:.3g}'} |")
+
+
+def training_rows():
+    rows = []
+    diffs = []
+    for seed in (0, 1, 2):
+        loss, grad, want, want_grad = ctc.both(*ctc.case(seed))
+        finite = np.isfinite(want)
+        diffs.append(maxdiff([(loss[finite], want[finite]), (grad, want_grad)]))
+    rows.append(("ctc.ctc_loss (loss, grad; inf rows equal)", "ctc.ctc_loss", "float32",
+                 max(diffs)))
+
+    for dtype in ("float32", "bfloat16"):
+        jdt, tdt = ltr.DTYPES[dtype]
+        params, x, seq, c0, h0 = ltr.make_case(0, 7, 8, 128)
+        x_proj, w_h = ltr.project_inputs({k: torch.from_numpy(v) for k, v in params.items()},
+                                         torch.from_numpy(x), tdt)
+        hs, cs, zs, c_T, h_T = ltr.train_forward(x_proj, w_h, torch.from_numpy(c0),
+                                                 torch.from_numpy(h0), torch.from_numpy(seq))
+        jw = jnp.asarray(w_h.float().numpy()).astype(jdt)
+        want = ltr._lstm_train_fwd_impl(jnp.asarray(x_proj.float().numpy()).astype(jdt), jw,
+                                        jnp.asarray(c0), jnp.asarray(h0),
+                                        jnp.asarray(seq)[:, None], interpret=True)
+        share, _ = ltr.bf16_mismatch(zs.float().numpy(), np.asarray(want[2].astype(jnp.float32)))
+        rows.append(("ops.lstm_train.train_forward (hs, cs, c_T, h_T)", "ops._lstm_train_fwd_impl "
+                     "(Pallas K3, interpret)", dtype,
+                     maxdiff([(hs, want[0]), (cs, want[1]), (c_T, want[3]), (h_T, want[4])])))
+        rows.append(("ops.lstm_train.train_forward (zs, bf16)", "ops._lstm_train_fwd_impl", dtype,
+                     f"{share:.2%} of values 1 bf16 ulp apart, rest equal"))
+        rs = np.random.RandomState(1)
+        T, B, H = 7, 8, 128
+        dout, dc_T, dh_T = ((rs.randn(*shape) * 0.1).astype(np.float32)
+                            for shape in ((T, B, H), (B, H), (B, H)))
+        cs_prev = np.concatenate([c0[None], np.asarray(want[1])[:-1]])
+        j_zs = np.array(want[2].astype(jnp.float32))
+        dz_w, dc_w, dh_w = ltr._lstm_train_bwd_impl(
+            want[2], want[1], jnp.asarray(cs_prev), jnp.asarray(dout), jw.T,
+            jnp.asarray(seq)[:, None], jnp.asarray(dc_T), jnp.asarray(dh_T), interpret=True)
+        dz, dc0, dh0 = ltr.train_backward(
+            torch.from_numpy(j_zs).to(torch.bfloat16), torch.from_numpy(np.array(want[1])),
+            torch.from_numpy(cs_prev), torch.from_numpy(dout), w_h, torch.from_numpy(seq),
+            torch.from_numpy(dc_T), torch.from_numpy(dh_T))
+        rows.append(("ops.lstm_train.train_backward (dz, dc0, dh0)", "ops._lstm_train_bwd_impl "
+                     "(Pallas K4, interpret)", dtype,
+                     maxdiff([(dz, dz_w), (dc0, dc_w), (dh0, dh_w)])))
+        params, x, seq, c0, h0 = ltr.make_case(7 + 8 + 128, 7, 8, 128, n_in=48)
+        _, grads, _ = ltr.port_grads(params, x, seq, c0, h0, tdt)
+        _, want_grads = ltr.jax_grads(lambda *a, **k: ltr.jax_lstm_train(*a, interpret=True, **k),
+                                      params, x, seq, c0, h0, jdt)
+        worst = max(stp.rel_norm(grads[k], np.asarray(v)) for k, v in want_grads.items())
+        rows.append(("ops.lstm_train.lstm_train grads (kernel, bias, x, c0, h0)",
+                     "jax.grad of ops.lstm_train.lstm_train", dtype,
+                     f"{maxdiff([(grads[k], want_grads[k]) for k in grads]):.3g} "
+                     f"(largest relative norm {worst:.2g})"))
+
+    for dtype in ("float32", "bfloat16"):
+        jax_cfg, cfg = stp.configs(dtype)
+        params = jax.device_get(init_params(jax.random.PRNGKey(0), jax_cfg))
+        arrays = stp.make_batch(1)
+        optimizer = stp.jax_create_optimizer(learning_rate=stp.LR)
+        jstate = stp.jax_create_train_state(None, jax_cfg, optimizer, params=params)
+        jstate, jm = stp.jax_make_train_step(jax_cfg, optimizer)(
+            jstate, stp.jax_batch(arrays), jax.random.PRNGKey(9))
+        state = stp.create_train_state(cfg, device="cpu", model=params_from_numpy(params, cfg),
+                                       learning_rate=stp.LR)
+        state, m = stp.make_train_step()(state, stp.port_batch(arrays), 9)
+        finite = ~m.non_finite.numpy()
+        rows.append(("train.make_train_step, one step (loss; grad_norm)",
+                     "train.make_train_step (autodiff of lstm_scan)", dtype,
+                     f"{abs(m.loss.item() - float(jm.loss)):.3g}; "
+                     f"{abs(m.grad_norm.item() - float(jm.grad_norm)):.3g} "
+                     f"(non_finite equal: {bool(np.array_equal(~finite, np.asarray(jm.non_finite)))})"))
+    return rows
 
 
 if __name__ == "__main__":
