@@ -17,13 +17,31 @@
      shape (B = 16, T = 256), f32 and bf16, ragged lengths, non-zero
      initial state and final-state gradients; the library time is cuDNN's
      training forward and its backward.
+   - K2, the int8 inference recurrence, at H = 2048, B in {1, 8, 16, 32}, T
+     in {16, 200}, x_proj in f32 and bf16, ragged lengths, non-zero initial
+     state: one step from a common state (the int32 sums are exact), then
+     the sequence, with the count of h_q values that differ;
+   - K5, the beam scan, at (W, C) in {(8, 8), (32, 29), (128, 29),
+     (128, 127), (500, 29), (512, 31)}, B in {1, 16}, T in {16, 200}, peaky
+     and flat emissions, one utterance shorter than T; the cutoff branches,
+     an external class layout, chunks of 16 against one launch, and a state
+     handed from the plain version to the kernel mid-stream, at beam 32 and
+     at the serving default of 500. Backpointers must be equal.
 3. Serving phase: a full-width DeepSpeech (the 2048 geometry, 29 outputs)
    with random weights from a seeded generator, saved as an artifact and
    opened with `Model(dir)` on the card; answers `stt` on three utterances,
    `stt_with_metadata`, one `Stream` fed in 320 ms pieces with intermediate
-   decodes, and `infer_logits` at B = 16. Each request must launch K1 and
-   neither K3 nor K4, and the probabilities must match the same model run
-   by the port on the CPU.
+   decodes, and `infer_logits` at B = 16. Each of these must launch K1 and
+   no other kernel, and the probabilities must match the same model run
+   by the port on the CPU. Then the two opt-in paths: a stream with
+   device_decode, at the artifact's beam of 32 and at `Model`'s default of
+   500, which must launch K5 once per chunk (and K1) and whose transcript,
+   tokens and timesteps must be those of the plain beam scan on the same
+   emissions, and a batch device decode of the B = 16 logits from a host
+   array; and `Model(dir, quantized_inference=True)`, whose `infer_logits`
+   must launch K2 and not K1 and is held against the port's int8 path on
+   the CPU and against the float logits, with K2 held against its plain
+   version and timed on that request's own input projection.
 4. Training phase: 32 seeded synthetic utterances of 2-5 s with random
    transcripts, a train and a dev CSV, and `train(SttConfig(...))` of the
    full-width model at B = 16 for one epoch with dropout; every step must
@@ -70,6 +88,27 @@ TRAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 # 47M-parameter products summed in another order (measured on an H100:
 # equal loss and norm, 5e-6 on the LSTM kernel's gradient)
 STEP_LOSS_RTOL, STEP_GRAD_NORM_RTOL, STEP_LSTM_GRAD_TOL = 1e-4, 1e-3, 1e-3
+# K2 vs its plain version. One step from a common state: the int32 sums are
+# equal, so z differs only by float32 rounding. Over a sequence a last-bit
+# difference in expf/tanhf moves some h * 127 across a rounding boundary;
+# that h_q then differs by one step, which moves z of the next step by up to
+# one weight scale (0.022 at H = 2048), and the difference spreads (measured
+# on an H100: at most 0.5% of the h_q values and 1.5e-3 over 200 steps). The
+# count of h_q values that differ is printed.
+K2_STEP_TOL, K2_SEQ_TOL = 1e-5, 1e-2
+K5_SCORE_TOL = 1e-4  # K5's beam scores vs the plain version's (f32 log sums)
+K5_TIE_ULPS = 4  # see compare_beam
+# int8 logits of the full-width model, card vs the port's int8 path on the
+# CPU from the same quantized weights: the h_q flips above move h by ~1e-3,
+# and with random weights the hidden activations are ~0.1 against a
+# quantization step of relu_clip / 127 = 0.157, so that moves about 1% of
+# layer_6's inputs across a rounding boundary, each worth up to 0.157 x a
+# weight (~0.05): the largest difference is a sum of such flips (measured
+# 7.7e-2 on an H100 beside a largest logit of 0.41), the mean stays small.
+# int8 vs float logits on the card is the quantization error itself at that
+# coarse step (measured 0.22).
+INT8_CARD_CPU_TOL, INT8_CARD_CPU_MEAN_TOL, INT8_FLOAT_TOL = 0.2, 2e-2, 0.5
+INT8_OPS_PER_S = 1979e12  # dense int8, H100 SXM
 PROBS_TOL = 1e-4  # card vs CPU probabilities of the full-width model, f32
 LOGITS_TOL = 2e-3  # card vs CPU logits of the full-width model, f32
 LABELS = list(" abcdefghijklmnopqrstuvwxyz'")  # English, 28 labels + blank
@@ -326,6 +365,244 @@ def cudnn_times(rec: dict, lstm, x_proj, w_h, c0, h0, dout, dc_T, dh_T, reps: in
                                             retain_graph=True), reps)
 
 
+def k2_record(name: str, args: tuple, packed: torch.Tensor) -> dict:
+    """Holds K2 against its plain version on args = (x_proj, w_h_q,
+    step_scale, c0, h0, seq): one step from the common start state, then
+    the sequence, with the count of h_q values that differ; and times it
+    beside its bound and the plain version."""
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+    from stt_tpu_torch.ops.quant import recurrence_q
+
+    x_proj, w_h_q, step_scale, c0, h0, seq = args
+    T, B, four_h = x_proj.shape
+    H = four_h // 4
+
+    def diff(got, want):  # over (out, (c, h))
+        return max((g - w).abs().max().item() for g, w in
+                   zip((got[0], *got[1]), (want[0], *want[1])))
+
+    one = (x_proj[:1].contiguous(), w_h_q, step_scale, c0, h0, seq.clamp(max=1))
+    step_err = diff(lstm_recurrence_q(*one, packed=packed), recurrence_q(*one))
+    if not step_err <= K2_STEP_TOL:
+        raise AssertionError(f"{name}: one step off by {step_err} > {K2_STEP_TOL}")
+    got = lstm_recurrence_q(*args, packed=packed)
+    want = recurrence_q(*args)
+    torch.cuda.synchronize()
+    err = diff(got, want)
+    valid = torch.arange(T, device=x_proj.device)[:, None] < seq[None, :]
+    differ = (torch.round(got[0] * 127) != torch.round(want[0] * 127))[valid]
+    if not err <= K2_SEQ_TOL:
+        raise AssertionError(f"{name}: max abs diff {err} > {K2_SEQ_TOL}, "
+                             f"{int(differ.sum())} of {differ.numel()} h_q differ")
+    reps = 20 if T <= 16 else 5
+    ms = cuda_ms(lambda: lstm_recurrence_q(*args, packed=packed), reps)
+    plain_ms = cuda_ms(lambda: recurrence_q(*args), 2 if T > 16 else 5)
+    item = torch.finfo(x_proj.dtype).bits // 8
+    state = 2 * B * H * 4
+    moved = (T * B * 4 * H * item + H * 4 * H + 4 * H * 4 + state + B * 4
+             + T * B * H * 4 + state)
+    ops = 2 * int(seq.sum()) * H * 4 * H
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return {
+        "dtype": str(x_proj.dtype).replace("torch.", ""), "B": B, "T": T, "H": H,
+        "valid_steps": int(seq.sum()),
+        "one_step_max_abs_err": step_err, "one_step_tol": K2_STEP_TOL,
+        "max_abs_err": err, "tol": K2_SEQ_TOL,
+        "h_q_differ": int(differ.sum()), "h_q_valid": differ.numel(),
+        "ms": ms, "us_per_step": ms / T * 1e3, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "w_h_per_step_bound_ms": T * H * 4 * H / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def k2_phase(device, seed: int) -> list:
+    """K2 against its plain version: one step from a common state, then the
+    sequence; timed beside its bound and the plain version. No PyTorch call
+    computes this quantized recurrence, so there is no library time."""
+    from stt_tpu_torch.ops.lstm_kernel import pack_w_h_q
+    from stt_tpu_torch.ops.quant import _quantize_weight
+
+    H = 2048
+    gen = torch.Generator().manual_seed(seed + 11)
+    limit = (6.0 / (6 * H)) ** 0.5
+    w_h_q, w_scale = _quantize_weight(((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * limit).to(device))
+    w_h_q = w_h_q.contiguous()
+    step_scale = (w_scale / 127.0).reshape(1, -1)
+    packed = pack_w_h_q(w_h_q)
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 8, 16, 32):
+            for T in (16, 200):
+                x_proj = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(device).to(dtype)
+                c0 = (torch.randn(B, H, generator=gen) * 0.1).to(device)
+                h0 = ((torch.rand(B, H, generator=gen) * 2 - 1) * 0.9).to(device)
+                seq = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+                seq[0] = T
+                rec = k2_record(f"K2 {dtype} B={B} T={T}",
+                                (x_proj, w_h_q, step_scale, c0, h0, seq.to(device)), packed)
+                print("k2", json.dumps(rec), flush=True)
+                records.append(rec)
+    return records
+
+
+def beam_inputs(B: int, T: int, C: int, peaky: bool, seed: int, device) -> tuple:
+    """Seeded softmax emissions, flat or peaky with frequent strong blanks,
+    and lengths with one utterance shorter than T."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(B, T, C)).astype(np.float32)
+    if peaky:
+        logits = logits * 4.0
+        logits[:, ::3, -1] += 6.0
+    lens = np.full((B,), T, np.int32)
+    lens[-1] = max(1, T - 3)
+    return (torch.softmax(torch.from_numpy(logits).to(device), dim=-1).contiguous(),
+            torch.from_numpy(lens).to(device))
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in float32 representation steps; equal infinities
+    are 0 apart."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def compare_beam(name: str, probs, lens, W: int, kernel_out, plain_out, params: tuple,
+                 state=None) -> float:
+    """Holds one beam_scan result (state, scores, packed backpointers)
+    against the plain version's (state, bp_src, bp_char): backpointers
+    equal, scores within K5_SCORE_TOL. Backpointer decisions compare
+    float32 values made with logf, expf and log1pf, which the kernel and
+    ATen may round differently in the last bit; if a fixture differs, the
+    first differing frame and slot are printed with both candidates and
+    their values after that frame, and the fixture passes only if those
+    values lie within K5_TIE_ULPS of each other and every rebuilt candidate
+    (tokens and timesteps) is equal. `state` is the state both started from
+    (None: root-only beams). Returns the largest score difference."""
+    from stt_tpu_torch.decode.device import beam_scan_plain, logaddexp
+    from stt_tpu_torch.ops import beam_kernel
+
+    _, scores, packed = kernel_out
+    plain_state, src, char = plain_out
+    want = logaddexp(plain_state[0], plain_state[1])
+    finite = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(scores), finite):
+        raise AssertionError(f"{name}: dead slots differ")
+    score_err = (scores[finite] - want[finite]).abs().max().item() if finite.any() else 0.0
+    if not score_err <= K5_SCORE_TOL:
+        raise AssertionError(f"{name}: scores differ by {score_err} > {K5_SCORE_TOL}")
+    want_packed = beam_kernel.pack_bp(src, char)
+    if torch.equal(packed, want_packed):
+        return score_err
+    b, t, k = (int(v) for v in (packed != want_packed).nonzero()[0])
+    upto = (probs[:, :t + 1].contiguous(), lens.clamp(max=t + 1), W, *params)
+    if state is None:
+        state = beam_kernel.init_state(probs.shape[0], probs.device, beam_kernel.state_slots(W))
+    _, s_kernel, _ = beam_kernel.beam_scan(*upto, state=state)
+    st, _, _ = beam_scan_plain(beam_kernel.state_to_plain(state, W), *upto)
+    s_plain = logaddexp(st[0], st[1])
+    got_sc = beam_kernel.unpack_bp(packed[b, t, k].cpu().numpy())
+    print(f"{name}: first difference at utterance {b} frame {t} slot {k}: kernel (src, char) "
+          f"{got_sc} value {s_kernel[b, k].item()!r}, plain ({int(src[b, t, k])}, "
+          f"{int(char[b, t, k])}) value {s_plain[b, k].item()!r}", flush=True)
+    apart = ulps_apart(s_kernel[b, k], s_plain[b, k])
+    walked = [beam_results(scores[i], *beam_kernel.unpack_bp(packed[i].cpu().numpy()), W)
+              == beam_results(want[i], src[i].cpu().numpy(), char[i].cpu().numpy(), W)
+              for i in range(probs.shape[0])]
+    if apart > K5_TIE_ULPS or not all(walked):
+        raise AssertionError(f"{name}: backpointers differ ({apart} ulp apart, rebuilt equal: {walked})")
+    return score_err
+
+
+def beam_results(scores, src, char, W: int) -> list:
+    """(tokens, timesteps) of every live candidate, best first."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.decode.device import rebuild_results
+
+    alphabet = Alphabet().init_from_labels([chr(33 + i) for i in range(127)])
+    found = rebuild_results(scores.cpu().numpy(), src, char, alphabet, W)
+    return [(r.tokens, r.timesteps) for r in found]
+
+
+def k5_phase(device, seed: int) -> list:
+    """K5 against its plain version running on the card, and its times. The
+    bound is bytes (emissions and state in, packed backpointers and state
+    out), but the T frames form a dependency chain, so the time per frame is
+    printed beside it. No PyTorch call computes a beam scan: no library time."""
+    from stt_tpu_torch.decode.device import beam_scan_plain
+    from stt_tpu_torch.ops import beam_kernel
+
+    def plain(probs, lens, W, *params, state=None):
+        if state is None:
+            state = beam_kernel.init_state(probs.shape[0], device, beam_kernel.state_slots(W))
+        return beam_scan_plain(beam_kernel.state_to_plain(state, W), probs, lens, W, *params)
+
+    records = []
+    for W, C in ((8, 8), (32, 29), (128, 29), (128, 127), (500, 29), (512, 31)):
+        for B in (1, 16):
+            for T in (16, 200):
+                for peaky in (True, False):
+                    probs, lens = beam_inputs(B, T, C, peaky, seed + W + C + B + T, device)
+                    name = f"K5 W={W} C={C} B={B} T={T} {'peaky' if peaky else 'flat'}"
+                    params = (40, 1.0, None, ())
+                    out = beam_kernel.beam_scan(probs, lens, W, *params)
+                    torch.cuda.synchronize()
+                    err = compare_beam(name, probs, lens, W, out, plain(probs, lens, W, *params), params)
+                    reps = 20 if T <= 16 else 3
+                    ms = cuda_ms(lambda: beam_kernel.beam_scan(probs, lens, W, *params), reps)
+                    plain_ms = cuda_ms(lambda: plain(probs, lens, W, *params), 1)
+                    state_bytes = (2 + 5) * B * beam_kernel.state_slots(W) * 4 + B * 4
+                    bp_bytes = B * T * W * (2 if W <= beam_kernel.WSLOTS else 4)
+                    moved = B * T * C * 4 + B * 4 + 2 * beam_kernel.LANES * 4 + 2 * state_bytes + bp_bytes
+                    bound, bound_by = bound_ms(moved, 0, torch.float32)
+                    rec = {"W": W, "C": C, "B": B, "T": T, "emissions": "peaky" if peaky else "flat",
+                           "max_abs_err": err, "tol": K5_SCORE_TOL, "backpointers": "equal",
+                           "ms": ms, "us_per_frame": ms / T * 1e3, "plain_ms": plain_ms,
+                           "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+                    print("k5", json.dumps(rec), flush=True)
+                    records.append(rec)
+
+    # the branches of the emission cutoff, and an external class layout
+    for label, C, W, params in (
+        ("cutoff_top_n=10 cutoff_prob=0.9", 29, 32, (10, 0.9, None, ())),
+        ("cutoff_top_n=20", 29, 32, (20, 1.0, None, ())),
+        ("blank_id=0 ignored=(1, 2)", 32, 32, (40, 1.0, 0, (1, 2))),
+    ):
+        for peaky in (True, False):
+            probs, lens = beam_inputs(4, 48, C, peaky, seed + 100 + C + len(label), device)
+            out = beam_kernel.beam_scan(probs, lens, W, *params)
+            compare_beam(f"K5 {label} {'peaky' if peaky else 'flat'}", probs, lens, W, out,
+                         plain(probs, lens, W, *params), params)
+    print("k5 branches: backpointers equal (cutoff_prob, cutoff_top_n alone, external layout)", flush=True)
+
+    # chunks of 16 with the state carried against one launch over all T,
+    # and a state handed from the plain version to the kernel mid-stream
+    for W in (32, 500):
+        B, T, C = 4, 64, 29
+        probs, lens = beam_inputs(B, T, C, True, seed + 200 + W, device)
+        _, scores, packed = beam_kernel.beam_scan(probs, lens, W)
+        state, parts = None, []
+        for t0 in range(0, T, 16):
+            state, chunk_scores, bp = beam_kernel.beam_scan(
+                probs[:, t0:t0 + 16].contiguous(), (lens - t0).clamp(0, 16), W, state=state)
+            parts.append(bp)
+        if not (torch.equal(torch.cat(parts, dim=1), packed) and torch.equal(chunk_scores, scores)):
+            raise AssertionError(f"K5 W={W}: chunks of 16 differ from one launch over all frames")
+        half = plain(probs[:, :32].contiguous(), lens.clamp(max=32), W)
+        rest = (probs[:, 32:].contiguous(), (lens - 32).clamp(min=0), W)
+        handed = beam_kernel.beam_scan(*rest, state=beam_kernel.state_from_plain(half[0]))
+        carried = plain(*rest, state=beam_kernel.state_from_plain(half[0]))
+        compare_beam(f"K5 W={W} state handed from the plain version", *rest, handed, carried,
+                     (40, 1.0, None, ()), state=beam_kernel.state_from_plain(half[0]))
+        if not torch.equal(torch.cat([beam_kernel.pack_bp(half[1], half[2]), handed[2]], dim=1), packed):
+            raise AssertionError(f"K5 W={W}: plain first half + kernel second half differs from one launch")
+    print("k5 chunked == one launch; plain -> kernel hand-over mid-stream equal (beam 32 and 500)",
+          flush=True)
+    return records
+
+
 def utterance(seconds: float, rate: int, rng: np.random.RandomState) -> np.ndarray:
     """Seeded speech-like audio: a few gliding harmonics under noise."""
     n = int(seconds * rate)
@@ -349,33 +626,39 @@ def device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def profile_request(gpu, audio: np.ndarray, alphabet) -> dict:
-    """Where one stt request's time goes: its wall time under
-    torch.profiler, the device time of all kernels and copies in it and of
-    K1 alone, and the host beam decoder re-run alone on its emissions."""
+def profiled(name: str, audio_s: float, fn, kernel_names: dict) -> tuple:
+    """One request under torch.profiler: its wall time, the device time of
+    all kernels and copies in it and of each named kernel (by a substring
+    of the kernel's name), and the device's idle share. Returns (record,
+    the request's result)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from stt_tpu_torch.decode import ctc_beam_search_decoder
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        _, probs = gpu.stt_with_emissions(audio)
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     events = device_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in events if "lstm_step" in e.key) / 1e3
+    rec = {"request": f"{name} (profiled)", "audio_s": audio_s, "wall_ms": wall_ms,
+           "device_busy_ms": device_ms or None,
+           "device_idle_share": (1 - device_ms / wall_ms) if device_ms else None}
+    for key, part in kernel_names.items():
+        rec[key] = sum(e.self_device_time_total for e in events if part in e.key) / 1e3 or None
+    return rec, result
+
+
+def profile_request(gpu, audio: np.ndarray, alphabet) -> dict:
+    """Where one stt request's time goes, with the host beam decoder re-run
+    alone on its emissions."""
+    from stt_tpu_torch.decode import ctc_beam_search_decoder
+
+    rec, (_, probs) = profiled("stt_with_emissions", len(audio) / gpu.sample_rate(),
+                               lambda: gpu.stt_with_emissions(audio), {"k1_device_ms": "lstm_step"})
     start = time.perf_counter()
     ctc_beam_search_decoder(probs, alphabet, BEAM_WIDTH)
-    decode_ms = (time.perf_counter() - start) * 1e3
-    rec = {
-        "request": "stt_with_emissions (profiled)",
-        "audio_s": len(audio) / gpu.sample_rate(),
-        "wall_ms": wall_ms, "device_busy_ms": device_ms or None,
-        "k1_device_ms": k1_ms or None, "host_decode_ms": decode_ms,
-        "device_idle_share": (1 - device_ms / wall_ms) if device_ms else None,
-    }
+    rec["host_decode_ms"] = (time.perf_counter() - start) * 1e3
     print("profile", json.dumps(rec), flush=True)
     return rec
 
@@ -384,10 +667,13 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
     from stt_tpu_torch.alphabet import Alphabet
     from stt_tpu_torch.artifact import build_metadata, save_artifact
     from stt_tpu_torch.decode import ctc_beam_search_decoder
+    from stt_tpu_torch.decode import device as decode_device
     from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc
     from stt_tpu_torch.models import DeepSpeech, ModelConfig
-    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence
+    from stt_tpu_torch.ops import beam_kernel
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence, lstm_recurrence_q
     from stt_tpu_torch.ops.lstm_train import lstm_train_bwd, lstm_train_fwd
+    from stt_tpu_torch.ops.quant import apply_model_quantized, input_projection_q, qparams_to
     from stt_tpu_torch.serve import Model
 
     alphabet = Alphabet().init_from_labels(LABELS)
@@ -408,20 +694,28 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
     audios = [utterance(s, rate, rng) for s in (2.0, 3.3, 4.7)]
     requests = []
 
-    def request(name: str, audio_s: float, fn):
-        lstm_recurrence.launches = lstm_train_fwd.launches = lstm_train_bwd.launches = 0
+    counted = {"k1": lstm_recurrence, "k2": lstm_recurrence_q, "k3": lstm_train_fwd,
+               "k4": lstm_train_bwd, "k5": beam_kernel.beam_scan}
+
+    def request(name: str, audio_s: float, fn, must=("k1",)):
+        """Run one request with every launch count set to 0 just before it:
+        it must launch each kernel in `must` and none of the others."""
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        decode_device.scan.plain_scans = 0
         torch.cuda.synchronize()
         start = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - start) * 1e3
-        launches = lstm_recurrence.launches
-        if launches == 0:
-            raise AssertionError(f"request {name} did not launch the LSTM kernel")
-        if lstm_train_fwd.launches or lstm_train_bwd.launches:
-            raise AssertionError(f"request {name} launched a training kernel")
-        rec = {"request": name, "audio_s": audio_s, "ms": ms,
-               "rtf": ms / 1e3 / audio_s, "k1_launches": launches}
+        launches = {key: wrapper.launches for key, wrapper in counted.items()}
+        for key, n in launches.items():
+            if (n > 0) != (key in must):
+                raise AssertionError(f"request {name}: {key} launched {n} times, must launch: {must}")
+        if decode_device.scan.plain_scans:
+            raise AssertionError(f"request {name} ran the plain beam scan")
+        rec = {"request": name, "audio_s": audio_s, "ms": ms, "rtf": ms / 1e3 / audio_s,
+               "k1_launches": launches["k1"], "launches": launches}
         print("request", json.dumps(rec), flush=True)
         requests.append(rec)
         return result
@@ -459,6 +753,89 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
     logits = request("infer_logits[B=16]", sum(len(a) for a in batch) / rate,
                      lambda: gpu.infer_logits(padded, lengths))
 
+    # ---- opt-in path B: decoding on the card ---------------------------
+    def device_stream_request():
+        stream = gpu.create_stream(device_decode=True)
+        partial = []
+        for off in range(0, len(audios[2]), piece):
+            stream.feed_audio_content(audios[2][off:off + piece])
+            partial.append(stream.intermediate_decode())
+        return partial, stream.finish_stream_with_metadata(3)
+
+    gpu.create_stream(device_decode=True).feed_audio_content(audios[0])  # warm-up
+    _, emissions = gpu.stt_with_emissions(audios[2])
+    em = torch.from_numpy(emissions).to(device)[None].contiguous()
+    em_len = torch.tensor([em.shape[1]], dtype=torch.int32, device=device)
+    device_equals_host = {}
+    # the artifact's beam, then the beam `Model` takes when the metadata
+    # names none
+    for beam in (BEAM_WIDTH, 500):
+        gpu.set_model_beam_width(beam)
+        name = f"stream[320ms, device_decode, beam {beam}]"
+        dd_partial, dd_meta = request(name, len(audios[2]) / rate, device_stream_request,
+                                      must=("k1", "k5"))
+        if requests[-1]["launches"]["k5"] != requests[-1]["launches"]["k1"]:
+            raise AssertionError(f"device decode must launch K5 once per chunk: {requests[-1]}")
+        # the same emissions through the plain beam scan on the card
+        plain_state, src, char = decode_device.beam_scan_plain(
+            decode_device.init_beam_state(1, beam, device), em, em_len, beam, 40, 1.0)
+        want = decode_device.rebuild_results(
+            decode_device.logaddexp(plain_state[0], plain_state[1])[0].cpu().numpy(),
+            src[0].cpu().numpy(), char[0].cpu().numpy(), alphabet, 3)
+        for cand, ref in zip(dd_meta.transcripts, want):
+            if (cand.transcript, [alphabet.encode_single(t.text) for t in cand.tokens],
+                    [t.timestep for t in cand.tokens]) != (ref.transcript, ref.tokens, ref.timesteps):
+                raise AssertionError(f"{name}: {cand} differs from the plain scan's {ref}")
+            if not abs(cand.confidence - ref.confidence) <= K5_SCORE_TOL:
+                raise AssertionError(f"{name}: confidence {cand.confidence} vs {ref.confidence}")
+        device_equals_host[beam] = dd_meta.transcripts[0].transcript == texts[2]
+        print(f"serving: {name} == plain scan on its emissions (3 candidates); transcript "
+              f"equals the host decoder's at beam {BEAM_WIDTH}: {device_equals_host[beam]}",
+              flush=True)
+    gpu.set_model_beam_width(BEAM_WIDTH)
+
+    probs16 = torch.softmax(logits, dim=-1)
+    batch_results = request(
+        "ctc_beam_search_decoder_device[B=16]", sum(len(a) for a in batch) / rate,
+        lambda: decode_device.ctc_beam_search_decoder_device(
+            probs16, lengths, alphabet, beam_size=BEAM_WIDTH, num_results=2),
+        must=("k5",))
+    # the same from a host array: the entry point moves it to the card
+    from_host = request(
+        "ctc_beam_search_decoder_device[B=16, host array]", sum(len(a) for a in batch) / rate,
+        lambda: decode_device.ctc_beam_search_decoder_device(
+            probs16.cpu().numpy(), lengths, alphabet, beam_size=BEAM_WIDTH, num_results=2),
+        must=("k5",))
+    if from_host != batch_results:
+        raise AssertionError("batch device decode of a host array differs from the tensor's")
+    lens16 = torch.from_numpy(lengths).to(device)
+    st16, src16, char16 = decode_device.beam_scan_plain(
+        decode_device.init_beam_state(16, BEAM_WIDTH, device), probs16.contiguous(), lens16,
+        BEAM_WIDTH, 40, 1.0)
+    sc16 = decode_device.logaddexp(st16[0], st16[1]).cpu().numpy()
+    for i, got in enumerate(batch_results):
+        ref = decode_device.rebuild_results(sc16[i], src16[i].cpu().numpy(),
+                                            char16[i].cpu().numpy(), alphabet, 2)
+        if [(r.tokens, r.timesteps) for r in got] != [(r.tokens, r.timesteps) for r in ref]:
+            raise AssertionError(f"batch device decode, utterance {i}: {got} differs from {ref}")
+
+    # ---- opt-in path A: int8 inference ---------------------------------
+    qgpu = Model(work_dir, quantized_inference=True)
+    qgpu.infer_logits(padded[:2, :32], np.minimum(lengths[:2], 32))  # warm-up
+    q_logits = request("infer_logits[B=16, int8]", sum(len(a) for a in batch) / rate,
+                       lambda: qgpu.infer_logits(padded, lengths), must=("k2",))
+    # K2 against its plain version on what that request gave it: the
+    # request's own input projection, lengths and zero start state
+    x_proj_q = input_projection_q(qgpu._qparams, torch.from_numpy(padded).to(device),
+                                  gpu.model_config)
+    rec_q = qgpu._qparams["lstm_rec"]
+    zeros = torch.zeros((16, config.n_cell_dim), device=device)
+    k2_request = k2_record(
+        "K2 at the int8 request's shape",
+        (x_proj_q, rec_q["w_h_q"], rec_q["step_scale"], zeros, zeros.clone(),
+         torch.from_numpy(lengths).to(device)), rec_q["w_h_q_packed"])
+    print("k2 at infer_logits[B=16, int8]", json.dumps(k2_request), flush=True)
+
     # correctness: the card against the port's CPU path on the same model
     text_gpu, probs_gpu = gpu.stt_with_emissions(audios[0])
     text_cpu, probs_cpu = cpu.stt_with_emissions(audios[0])
@@ -479,11 +856,51 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
     logits_err = float(np.abs(logits_gpu - logits_cpu)[mask].max())
     if not logits_err <= LOGITS_TOL:
         raise AssertionError(f"card vs CPU logits: max abs diff {logits_err} > {LOGITS_TOL}")
+    q_gpu = q_logits.cpu().numpy()
+    # the same quantized weights on the CPU (quantizing there anew can move
+    # a scale by its last bit: the card divides by 127 as a product)
+    q_cpu, _ = apply_model_quantized(
+        qparams_to(qgpu._qparams, "cpu"), torch.from_numpy(padded),
+        seq_len=torch.from_numpy(lengths), config=gpu.model_config)
+    q_cpu = q_cpu.numpy()
+    assert np.isfinite(q_gpu).all() and q_gpu.shape == logits_gpu.shape
+    int8_err = float(np.abs(q_gpu - q_cpu)[mask].max())
+    int8_mean_err = float(np.abs(q_gpu - q_cpu)[mask].mean())
+    int8_float_err = float(np.abs(q_gpu - logits_gpu)[mask].max())
+    print(f"serving: int8 logits card vs CPU max {int8_err:.3e} (tol {INT8_CARD_CPU_TOL}) mean "
+          f"{int8_mean_err:.3e} (tol {INT8_CARD_CPU_MEAN_TOL}), int8 vs float on the card "
+          f"{int8_float_err:.3e} (bound {INT8_FLOAT_TOL}), largest float logit "
+          f"{np.abs(logits_gpu)[mask].max():.3f}", flush=True)
+    if not (int8_err <= INT8_CARD_CPU_TOL and int8_mean_err <= INT8_CARD_CPU_MEAN_TOL
+            and int8_float_err <= INT8_FLOAT_TOL):
+        raise AssertionError("int8 logits out of tolerance")
+    gpu.set_model_beam_width(500)
+    wide_profile = profiled("stream[320ms, device_decode, beam 500]", len(audios[2]) / rate,
+                            device_stream_request,
+                            {"k1_device_ms": "lstm_step", "k5_device_ms": "beam_scan_kernel"})[0]
+    gpu.set_model_beam_width(BEAM_WIDTH)
+    profiles = [
+        profiled(f"stream[320ms, device_decode, beam {BEAM_WIDTH}]", len(audios[2]) / rate,
+                 device_stream_request,
+                 {"k1_device_ms": "lstm_step", "k5_device_ms": "beam_scan_kernel"})[0],
+        wide_profile,
+        profiled("infer_logits[B=16, int8]", sum(len(a) for a in batch) / rate,
+                 lambda: qgpu.infer_logits(padded, lengths), {"k2_device_ms": "lstm_step_q"})[0],
+        profiled("infer_logits[B=16]", sum(len(a) for a in batch) / rate,
+                 lambda: gpu.infer_logits(padded, lengths), {"k1_device_ms": "lstm_step"})[0],
+    ]
+    for rec in profiles:
+        print("profile", json.dumps(rec), flush=True)
     print(f"serving: probs err {probs_err:.3e} (tol {PROBS_TOL}), logits err "
           f"{logits_err:.3e} (tol {LOGITS_TOL}), transcripts card == cpu: "
           f"{text_gpu == text_cpu}", flush=True)
     return {
-        "profile": profile_request(gpu, audios[2], alphabet),
+        "profile": profile_request(gpu, audios[2], alphabet), "opt_in_profiles": profiles,
+        "k2_at_int8_request": k2_request,
+        "int8_card_vs_cpu_max_abs_err": int8_err, "int8_card_vs_cpu_mean_abs_err": int8_mean_err,
+        "int8_vs_float_max_abs_err": int8_float_err,
+        "device_decode_equals_host_decoder": device_equals_host,
+        "device_decode_intermediate_decodes": len(dd_partial),
         "params": n_params, "beam_width": BEAM_WIDTH, "requests": requests,
         "probs_max_abs_err": probs_err, "logits_max_abs_err": logits_err,
         "card_transcript_equals_cpu": text_gpu == text_cpu,
@@ -735,7 +1152,9 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s", flush=True)
 
     k1 = k1_phase(device, args.seed)
+    k2 = k2_phase(device, args.seed)
     k3k4 = train_kernel_phase(device, args.seed)
+    k5 = k5_phase(device, args.seed)
     work_dir = os.path.join(ROOT, "build", "chip_smoke")
     serving = serving_phase(device, args.seed, os.path.join(work_dir, "model"))
     training = training_phase(device, args.seed, os.path.join(work_dir, "train"))
@@ -773,10 +1192,33 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    # K2 on the int8 request's own input projection, lengths and state, and
+    # K5 at the stream's chunk (one stream, 16 frames, the artifact's beam
+    # of 32, 29 classes)
+    q_shape = serving["k2_at_int8_request"]
+    beam_shape = next(r for r in k5 if (r["W"], r["C"], r["B"], r["T"], r["emissions"])
+                      == (BEAM_WIDTH, 29, 1, 16, "flat"))
+    for name, source, replaces, key, row in (
+        ("lstm_recurrence_q", "lstm_recurrence_q.cu", "stt_tpu/ops/lstm_kernel.py:196", "k2", q_shape),
+        ("beam_scan", "beam_scan.cu", "stt_tpu/ops/beam_kernel.py:506", "k5", beam_shape),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"stt_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces,
+            "launches": sum(r["launches"][key] for r in serving["requests"]),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k3k4": k3k4,
+            json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4, "k5": k5,
                        "serving": serving, "training": training, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

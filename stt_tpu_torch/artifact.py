@@ -77,6 +77,33 @@ def params_from_numpy(
     return model
 
 
+def qparams_from_numpy(qparams: Dict, device="cpu") -> Dict:
+    """The JAX package's `quantize_params` output (its QuantizedDense leaves
+    and arrays, read as numpy; the `x_scale` floats as they are) -> the
+    port's quantized parameters on `device`. The full-precision "lstm"
+    entry, which only the JAX package's scan fallback reads, is dropped."""
+    from stt_tpu_torch.ops.lstm_kernel import pack_w_h_q
+    from stt_tpu_torch.ops.quant import QuantizedDense
+
+    def tensor(value, dtype) -> torch.Tensor:
+        return torch.tensor(np.asarray(value, dtype), device=device)
+
+    out: Dict = {}
+    for name in (*DENSE, "lstm_in"):
+        q = qparams[name]
+        out[name] = QuantizedDense(
+            tensor(q.w_q, np.int8), tensor(q.w_scale, np.float32),
+            tensor(q.b, np.float32), float(q.x_scale),
+        )
+    w_h_q = tensor(qparams["lstm_rec"]["w_h_q"], np.int8)
+    out["lstm_rec"] = {
+        "w_h_q": w_h_q,
+        "step_scale": tensor(qparams["lstm_rec"]["step_scale"], np.float32),
+        "w_h_q_packed": pack_w_h_q(w_h_q),
+    }
+    return out
+
+
 def build_metadata(
     model_config: ModelConfig,
     feature_config: FeatureConfig,
@@ -121,13 +148,24 @@ def build_metadata(
 
 
 def save_artifact(
-    out_dir: str, model: DeepSpeech, metadata: dict, alphabet: Alphabet
+    out_dir: str,
+    model: DeepSpeech,
+    metadata: dict,
+    alphabet: Alphabet,
+    quantize: bool = False,
 ) -> str:
-    """Write `model`'s weights in the plain (f32) form, the metadata and
-    the alphabet into `out_dir`. (The int8 form is written by the JAX
-    package's exporter; this package reads it.)"""
+    """Write `model`'s weights, the metadata and the alphabet into
+    `out_dir`. quantize=True stores int8 weights and per-channel scales (a
+    4x smaller file, marked "quantized" in the metadata); `load_artifact`
+    dequantizes them."""
     os.makedirs(out_dir, exist_ok=True)
-    flat = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    if quantize:
+        from stt_tpu_torch.ops.quant import flatten_weight_only
+
+        metadata = dict(metadata, quantized=True)
+        flat = flatten_weight_only(model.state_dict(), n_cell=metadata["n_cell_dim"])
+    else:
+        flat = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
     np.savez(os.path.join(out_dir, "weights.npz"), **flat)
     with open(os.path.join(out_dir, "metadata.json"), "w") as f:
         json.dump(metadata, f, indent=2)

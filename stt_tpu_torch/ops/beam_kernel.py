@@ -1,0 +1,203 @@
+"""CTC beam expansion and prune over a chunk of frames: the wrapper of the
+Hopper kernel in `csrc/beam_scan.cu`, which replaces the TPU kernel
+`stt_tpu/ops/beam_kernel.py::_make_kernel` (one frame per grid step, beam
+state resident across frames).
+
+`beam_scan` launches the kernel for CUDA tensors and runs the plain version
+(`stt_tpu_torch.decode.device.beam_scan_plain`) for CPU tensors. The state
+between chunks keeps the JAX package's layout (`init_state`): beams padded
+with dead slots (-inf, hash (0, 0)), so the kernel's state and the plain
+version's interchange mid-stream (`state_to_plain`, `state_from_plain`).
+
+Capacity (`supports`): the TPU kernel takes beam <= 128 and classes <= 127;
+the Hopper kernel is widened to beam <= WIDE_SLOTS = 512 as long as the
+candidate pool beam x (classes + 1) fits MAX_POOL = 16,384 keys, so the
+serving default of beam 500 over a 29-class alphabet runs in the kernel.
+Beams up to WSLOTS = 128 keep the TPU kernel's 128-slot state and its int16
+backpointer plane (7 bits of source slot above 8 bits of character + 1);
+wider beams have a 512-slot state and an int32 plane of the same packing.
+Shapes beyond `supports` (byte alphabets, beams above 512) are not taken:
+`stt_tpu_torch.decode.device.scan` runs the plain scan for CPU tensors and
+raises for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from stt_tpu_torch.decode.device import (
+    NEG_INF,
+    BeamState,
+    beam_scan_plain,
+    class_masks,
+    logaddexp,
+)
+from stt_tpu_torch.ops._build import check_tensors, launch, load
+
+WSLOTS = 128  # beam slots of the state between chunks, beams up to 128
+WIDE_SLOTS = 512  # the same for wider beams
+LANES = 128  # class lanes of the masks
+MAX_POOL = 16384  # candidates per frame, beam x (classes + 1)
+
+# (f [2, B, 1, S] f32: p_b, p_nb; i [5, B, 1, S] int32: last, ha, hb,
+#  par_ha, par_hb; started [B, 1, 1] int32), S = state_slots(beam)
+KernelState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def supports(beam_width: int, n_class: int) -> bool:
+    """Shapes the kernel takes."""
+    return (beam_width <= WIDE_SLOTS and n_class <= LANES - 1
+            and beam_width * (n_class + 1) <= MAX_POOL)
+
+
+def state_slots(beam_width: int) -> int:
+    """Slots of the state tensors for this beam."""
+    return WSLOTS if beam_width <= WSLOTS else WIDE_SLOTS
+
+
+def _masks(n_class: int, blank: int, ignored_symbols: Sequence[int],
+           default_blank: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """(not-ignored [1, 1, LANES] int32, 0 on ignored and padded lanes;
+    static rank [1, 1, LANES] int32)."""
+    not_ignored, rank_c = class_masks(n_class, blank, ignored_symbols, default_blank)
+    nign = np.zeros((LANES,), np.int32)
+    nign[:n_class] = not_ignored
+    rank = np.arange(LANES, dtype=np.int32)
+    rank[:n_class] = rank_c
+    return nign.reshape(1, 1, LANES), rank.reshape(1, 1, LANES)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_masks(n_class, blank, ignored_symbols, default_blank, device):
+    nign, rank = _masks(n_class, blank, ignored_symbols, default_blank)
+    return (torch.from_numpy(nign.reshape(LANES)).to(device),
+            torch.from_numpy(rank.reshape(LANES)).to(device))
+
+
+def init_state(batch: int, device="cpu", slots: int = WSLOTS) -> KernelState:
+    """Root-only beam state, padded to `slots` slots (dead = -inf, hash 0)."""
+    f = torch.full((2, batch, 1, slots), NEG_INF, device=device)
+    f[0, :, 0, 0] = 0.0
+    i = torch.zeros((5, batch, 1, slots), dtype=torch.int32, device=device)
+    i[0] = -1
+    i[1:3, :, 0, 0] = 1
+    return f, i, torch.zeros((batch, 1, 1), dtype=torch.int32, device=device)
+
+
+def state_to_plain(state: KernelState, beam_width: int) -> BeamState:
+    """The first `beam_width` slots as the plain version's state."""
+    f, i, started = state
+    W = beam_width
+    return (f[0, :, 0, :W], f[1, :, 0, :W], *(i[k, :, 0, :W] for k in range(5)),
+            started[:, 0, 0] != 0)
+
+
+def state_from_plain(state: BeamState) -> KernelState:
+    """The plain version's state padded with dead slots to its beam's
+    `state_slots`."""
+    p_b, p_nb, last, ha, hb, par_ha, par_hb, started = state
+    B, W = p_b.shape
+    f, i, _ = init_state(B, p_b.device, state_slots(W))
+    f[0, :, 0, 0] = NEG_INF
+    i[1:3, :, 0, 0] = 0
+    f[0, :, 0, :W], f[1, :, 0, :W] = p_b, p_nb
+    for k, plane in enumerate((last, ha, hb, par_ha, par_hb)):
+        i[k, :, 0, :W] = plane
+    return f, i, started.to(torch.int32).reshape(B, 1, 1)
+
+
+def pack_bp(src: torch.Tensor, char: torch.Tensor) -> torch.Tensor:
+    """(bp_src, bp_char) [..., W] -> the packed plane (src << 8) | (char + 1),
+    int16 for beams up to WSLOTS and int32 above."""
+    packed = (src.to(torch.int32) << 8) | (char.to(torch.int32) + 1)
+    return packed.to(torch.int16) if src.shape[-1] <= WSLOTS else packed
+
+
+def unpack_bp(packed) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side unpack of beam_scan's plane -> (bp_src, bp_char)."""
+    p = np.asarray(packed).astype(np.int32)
+    return p >> 8, (p & 0xFF) - 1
+
+
+@functools.lru_cache(maxsize=None)
+def _library_function():
+    fn = load("beam_scan").beam_scan
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def beam_scan(
+    probs: torch.Tensor,
+    seq_lengths: torch.Tensor,
+    beam_width: int,
+    cutoff_top_n: int = 40,
+    cutoff_prob: float = 1.0,
+    blank_id: Optional[int] = None,
+    ignored_symbols: Sequence[int] = (),
+    state: Optional[KernelState] = None,
+) -> Tuple[KernelState, torch.Tensor, torch.Tensor]:
+    """Advance B beams over probs [B, T, C] (softmax, f32); frames at or
+    past seq_lengths [B] int32 are no-ops.
+
+    Returns (state', scores [B, W] with W = beam_width, bp [B, T, W]) where
+    bp packs each frame's backpointers as (src << 8) | (char + 1), int16
+    for W <= 128 and int32 above; `unpack_bp` recovers the (bp_src,
+    bp_char) pair `rebuild_results` walks. `state` threads streaming chunks
+    (the layout of `init_state` with `state_slots(W)` slots)."""
+    if probs.dim() != 3:
+        raise ValueError(f"probs must be [B, T, C], got {tuple(probs.shape)}")
+    B, T, C = probs.shape
+    W = int(beam_width)
+    if W < 1 or not supports(W, C):
+        raise ValueError(
+            f"the beam kernel takes 1 <= W <= {WIDE_SLOTS}, C <= {LANES - 1} and "
+            f"W * (C + 1) <= {MAX_POOL}, got W = {W}, C = {C}")
+    blank = C - 1 if blank_id is None else int(blank_id)
+    ignored = tuple(int(s) for s in ignored_symbols)
+    if not 0 <= blank < C or any(not 0 <= s < C for s in ignored):
+        raise ValueError("blank_id and ignored_symbols must be class indices")
+    device = probs.device
+    slots = state_slots(W)
+    if state is None:
+        state = init_state(B, device, slots)
+    f, i, started = state
+    check_tensors({
+        "probs": (probs, (B, T, C), torch.float32),
+        "seq_lengths": (seq_lengths, (B,), torch.int32),
+        "state[0]": (f, (2, B, 1, slots), torch.float32),
+        "state[1]": (i, (5, B, 1, slots), torch.int32),
+        "state[2]": (started, (B, 1, 1), torch.int32),
+    }, device)
+    if device.type == "cpu":
+        plain, src, char = beam_scan_plain(
+            state_to_plain(state, W), probs, seq_lengths, W, int(cutoff_top_n),
+            float(cutoff_prob), blank_id, ignored,
+        )
+        return state_from_plain(plain), logaddexp(plain[0], plain[1]), pack_bp(src, char)
+    out_f, out_i, out_started = torch.empty_like(f), torch.empty_like(i), torch.empty_like(started)
+    wide = W > WSLOTS
+    bp = torch.empty((B, T, W), dtype=torch.int32 if wide else torch.int16, device=device)
+    nign, rank = _device_masks(C, blank, ignored, blank_id is None, device)
+    # what the frame's emission cutoff does: 2 sorts the classes and cuts by
+    # cumulative mass or count, 1 only sorts, 0 keeps the static order
+    mode = 2 if cutoff_prob < 1.0 else 1 if cutoff_top_n < C else 0
+    beam_scan.launches += 1
+    launch(
+        _library_function(), "beam_scan", device,
+        probs.data_ptr(), seq_lengths.data_ptr(), nign.data_ptr(), rank.data_ptr(),
+        f.data_ptr(), i.data_ptr(), started.data_ptr(),
+        out_f.data_ptr(), out_i.data_ptr(), out_started.data_ptr(),
+        bp.data_ptr(), B, T, W, slots, C, blank, int(cutoff_top_n), mode, int(wide),
+        float(cutoff_prob),
+    )
+    scores = logaddexp(out_f[0, :, 0, :W], out_f[1, :, 0, :W])
+    return (out_f, out_i, out_started), scores, bp
+
+
+beam_scan.launches = 0

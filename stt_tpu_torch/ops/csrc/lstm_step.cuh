@@ -1,5 +1,7 @@
 // One step of the LSTM recurrence, shared by the inference kernel (K1,
-// lstm_recurrence.cu) and the training forward (K3, lstm_train.cu).
+// lstm_recurrence.cu) and the training forward (K3, lstm_train.cu); the int8
+// recurrence (K2, lstm_recurrence_q.cu) shares the tiling constants and the
+// gate math.
 //
 //     z      = x_proj[t] + h_{t-1} . W_h          (f32 accumulate)
 //     i,g,f,o = split(z, 4)                       (gate order i, g, f, o)
@@ -47,6 +49,24 @@ __device__ __forceinline__ float as_weight_type(float v, const __nv_bfloat16*) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// The gate math and the length mask for one (row, unit) at flat index idx,
+// from its four pre-activations z (i, g, f, o): updates c in place, writes
+// the carried h to h_next and the emitted output to out_t. Returns the
+// carried c. The int8 recurrence (lstm_recurrence_q.cu) shares it.
+__device__ __forceinline__ float finish(
+    const float (&z)[4], float* __restrict__ c,
+    const float* __restrict__ h_prev, float* __restrict__ h_next,
+    float* __restrict__ out_t, size_t idx, bool valid) {
+  const float c_old = c[idx];
+  const float c_new = sigmoid(z[2]) * c_old + sigmoid(z[0]) * tanhf(z[1]);
+  const float h_new = sigmoid(z[3]) * tanhf(c_new);
+  const float c_kept = valid ? c_new : c_old;
+  c[idx] = c_kept;
+  h_next[idx] = valid ? h_new : h_prev[idx];
+  out_t[idx] = valid ? h_new : 0.0f;
+  return c_kept;
 }
 
 // With STASH (the training forward) the step also writes the carried c
@@ -138,14 +158,7 @@ __device__ __forceinline__ void step(
     z[g] = to_f32(x_proj_t[(size_t)b * H4 + (size_t)g * H + ju]) + s;
   }
   const size_t idx = (size_t)b * H + ju;
-  const float c_old = c[idx];
-  const float c_new = sigmoid(z[2]) * c_old + sigmoid(z[0]) * tanhf(z[1]);
-  const float h_new = sigmoid(z[3]) * tanhf(c_new);
-  const bool valid = t < seq[b];
-  const float c_kept = valid ? c_new : c_old;
-  c[idx] = c_kept;
-  h_next[idx] = valid ? h_new : h_prev[idx];
-  out_t[idx] = valid ? h_new : 0.0f;
+  const float c_kept = finish(z, c, h_prev, h_next, out_t, idx, t < seq[b]);
   if constexpr (STASH) {
     cs_t[idx] = c_kept;
 #pragma unroll

@@ -16,8 +16,12 @@
 
 The model runs on the card (device="cuda") unless the caller passes
 device="cpu", always under torch.no_grad(), so its LSTM takes the inference
-kernel (K1) and never the training kernels. The external scorer and int8 inference are not ported yet
-and raise NotImplementedError.
+kernel (K1) and never the training kernels. With quantized_inference=True
+`infer_logits` takes the int8 path (`stt_tpu_torch.ops.quant`, whose
+recurrence is the int8 kernel K2); `create_stream(device_decode=True)`
+decodes on the model's device (`stt_tpu_torch.decode.device`, the beam
+kernel K5). The external scorer is not ported yet and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -65,11 +69,8 @@ class Model:
     def __init__(
         self, model_path: str, quantized_inference: bool = False, device="cuda"
     ):
-        if quantized_inference:
-            raise NotImplementedError(
-                "quantized_inference needs the int8 recurrence kernel, which is "
-                "not ported to stt_tpu_torch yet (ROADMAP.md, slice P4: K2)"
-            )
+        """quantized_inference=True runs batch forwards (`infer_logits`)
+        through the int8 path; streams stay float (batch 1, 16 frames)."""
         self.device = resolve_device(device)
         params, metadata, alphabet = load_artifact(model_path)
         self.metadata = metadata
@@ -80,6 +81,13 @@ class Model:
         self._runtime = StreamingRuntime(
             model, self.feature_config, alphabet, self.device
         )
+        self._qparams = None
+        if quantized_inference:
+            from stt_tpu_torch.ops.quant import quantize_params
+
+            self._qparams = quantize_params(
+                dict(model.named_parameters()), self.model_config
+            )
         self._beam_width = int(metadata.get("beam_width", 500))
         self._cutoff_prob = 1.0
         self._cutoff_top_n = 40
@@ -150,10 +158,18 @@ class Model:
     @torch.no_grad()
     def infer_logits(self, features, lengths) -> torch.Tensor:
         """Batched acoustic forward [B, T, n_mfcc] -> [B, T, n_out] f32
-        logits on the model's device."""
+        logits on the model's device; through the int8 path when the model
+        was opened with quantized_inference=True."""
         seq = torch.as_tensor(np.asarray(lengths), dtype=torch.int32).to(self.device)
         feats = torch.as_tensor(np.asarray(features), dtype=torch.float32).to(self.device)
-        logits, _ = self._runtime.model(feats, seq_len=seq)
+        if self._qparams is not None:
+            from stt_tpu_torch.ops.quant import apply_model_quantized
+
+            logits, _ = apply_model_quantized(
+                self._qparams, feats, seq_len=seq, config=self.model_config
+            )
+        else:
+            logits, _ = self._runtime.model(feats, seq_len=seq)
         return logits
 
     def _to_metadata(self, results: List[DecodeResult]) -> Metadata:

@@ -20,8 +20,11 @@ StreamingState, stt.cc:32-59,105-334):
 
 Every chunk takes one path: MFCC of the new audio, context windowing, the
 acoustic step (whose LSTM recurrence runs in the Hopper kernel on CUDA)
-and softmax, then the host decoder. The JAX package's split into a fused
-steady-state program and a generic one only saved TPU dispatches.
+and softmax, then the decoder: the host decoder on the probabilities (or
+the pruned emissions) pulled to the host, or with device_decode the beam
+scan on the model's device, which pulls nothing until a decode. The JAX
+package's split into a fused steady-state program and a generic one only
+saved TPU dispatches.
 """
 
 from __future__ import annotations
@@ -33,7 +36,11 @@ import torch
 
 from stt_tpu_torch.alphabet import Alphabet
 from stt_tpu_torch.decode.beam import make_decoder_state
-from stt_tpu_torch.decode.device import prune_emissions
+from stt_tpu_torch.decode.device import (
+    DeviceStreamingDecoder,
+    check_scan_shape,
+    prune_emissions,
+)
 from stt_tpu_torch.decode.scorer import ScorerBase
 from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc
 from stt_tpu_torch.models import DeepSpeech
@@ -99,7 +106,7 @@ class StreamingRuntime:
 
 class StreamState:
     """One live stream: host audio buffer, device frames and LSTM state,
-    and a host decoder."""
+    and a decoder (the host's, or with device_decode the device's)."""
 
     def __init__(
         self,
@@ -112,19 +119,19 @@ class StreamState:
         device_prune: Optional[bool] = None,
         device_decode: Optional[bool] = None,
     ):
-        if device_decode:
-            raise NotImplementedError(
-                "device_decode needs the device beam kernel, which is not "
-                "ported to stt_tpu_torch yet (ROADMAP.md, slice P5: K5)"
-            )
         self.runtime = runtime
         mc = runtime.model_config
+        # device_decode: the whole per-frame beam expansion and prune runs
+        # on the model's device (no-LM only, so a scorer turns it off);
+        # nothing decode-related crosses to the host while feeding, and the
+        # backpointers are pulled at decode(). Opt-in.
+        self.device_decode = bool(device_decode) and scorer is None
         # None = auto: prune on the device when it shrinks the transfer;
         # pruning disables probs_history (full-width probabilities never
         # reach the host)
         if device_prune is None:
             device_prune = auto_device_prune(mc.n_out, cutoff_top_n, cutoff_prob)
-        self.device_prune = bool(device_prune)
+        self.device_prune = bool(device_prune) and not self.device_decode
         self._cutoff_top_n = cutoff_top_n
         self._cutoff_prob = cutoff_prob
         self._audio: np.ndarray = np.zeros((0,), np.float32)
@@ -133,10 +140,18 @@ class StreamState:
         self._left_ctx = torch.zeros((mc.n_context, mc.n_input), dtype=torch.float32, device=dev)
         self._c, self._h = runtime.zero_state()
         self._probs_history: List[np.ndarray] = []
-        self.decoder = make_decoder_state(
-            runtime.alphabet, beam_width, cutoff_prob, cutoff_top_n,
-            scorer, hot_words,
-        )
+        if self.device_decode:
+            # a beam the kernel does not take is refused here on the card,
+            # not at the first chunk
+            check_scan_shape(beam_width, mc.n_out, dev)
+            self.decoder = DeviceStreamingDecoder(
+                runtime.alphabet, beam_width, cutoff_prob, cutoff_top_n, device=dev
+            )
+        else:
+            self.decoder = make_decoder_state(
+                runtime.alphabet, beam_width, cutoff_prob, cutoff_top_n,
+                scorer, hot_words,
+            )
         self._finished = False
 
     # -- feeding -----------------------------------------------------------
@@ -179,7 +194,10 @@ class StreamState:
             block = torch.cat([block, block.new_zeros((pad, mc.n_input))])
         stacked = torch.cat([self._left_ctx, block])
         probs, self._c, self._h = rt.window_infer(stacked, valid, self._c, self._h)
-        if self.device_prune:
+        if self.device_decode:
+            # the padded chunk keeps its shape; frames past `valid` are no-ops
+            self.decoder.next(probs, n_valid=valid)
+        elif self.device_prune:
             pruned = prune_emissions(
                 probs[:valid], cutoff_top_n=self._cutoff_top_n,
                 cutoff_prob=self._cutoff_prob,

@@ -14,6 +14,13 @@ it) plus the dtype's tolerance, since z differs as h does and the bf16
 rounding can then land on either side. The training backward's dz, dc0,
 dh0 from the same stashes: 1e-5 in f32 and 3e-4 in bf16, where dz is
 rounded to bf16 before the product with W_h and the same tipping applies.
+The int8 recurrence (K2): its int32 sums are exact, so one step from a
+common state gives the plain version's z-derived values to 1e-5; over a
+sequence a last-bit difference in expf/tanhf moves some h * 127 across a
+rounding boundary, that h_q then differs by one step (1/127 of h's range),
+and the difference spreads through W_h: 2e-2, with the share of differing
+h_q printed on failure. The beam scan (K5): backpointers equal, scores to
+1e-4.
 Gradients of `lstm_train` on the card against the CPU: in f32 1e-4 of each
 gradient's largest value; in bf16 the gradients of x and W_x pass through
 bf16 casts, so, as in tests/test_torch_lstm_train.py, by relative norm
@@ -226,3 +233,234 @@ def test_serving_on_card_launches_k1_and_no_training_kernel(device, tmp_path):
     model.infer_logits(np.zeros((2, 20, 26), np.float32), [20, 9])
     after = (lstm_recurrence.launches, lstm_train_fwd.launches, lstm_train_bwd.launches)
     assert after[0] > before[0] and after[1:] == before[1:]
+
+
+# --- K2: the int8 recurrence ---------------------------------------------
+
+K2_STEP_TOL = 1e-5
+K2_SEQ_TOL = 2e-2
+
+
+def q_case(seed, T, B, H, dtype, device):
+    from stt_tpu_torch.ops.quant import _quantize_weight
+
+    rs = np.random.RandomState(seed)
+    limit = (6.0 / (6 * H)) ** 0.5
+    w_h = torch.from_numpy(rs.uniform(-limit, limit, (H, 4 * H)).astype(np.float32))
+    w_h_q, scale = _quantize_weight(w_h)
+    x_proj = torch.from_numpy((rs.randn(T, B, 4 * H) * 0.5).astype(np.float32)).to(dtype)
+    seq = rs.randint(1, T + 1, size=B).astype(np.int32)
+    seq[0] = T
+    c0 = torch.from_numpy((rs.randn(B, H) * 0.1).astype(np.float32))
+    h0 = torch.from_numpy(rs.uniform(-0.9, 0.9, (B, H)).astype(np.float32))
+    return tuple(t.to(device) for t in (
+        x_proj, w_h_q.contiguous(), (scale / 127.0).reshape(1, -1), c0, h0, torch.from_numpy(seq)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 128), (3, 100), (8, 128), (17, 256)])
+def test_lstm_q_kernel_one_step_matches_plain(device, dtype, B, H):
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+    from stt_tpu_torch.ops.quant import recurrence_q
+
+    args = q_case(B + H, 1, B, H, dtype, device)
+    before = lstm_recurrence_q.launches
+    out, (c, h) = lstm_recurrence_q(*args)
+    want, (c_ref, h_ref) = recurrence_q(*args)
+    torch.cuda.synchronize()
+    assert lstm_recurrence_q.launches == before + 1
+    for got, ref in ((out, want), (c, c_ref), (h, h_ref)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=K2_STEP_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 128), (3, 100), (8, 128), (17, 256)])
+def test_lstm_q_kernel_sequence_matches_plain(device, dtype, B, H):
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q, pack_w_h_q
+    from stt_tpu_torch.ops.quant import recurrence_q
+
+    args = q_case(B * 3 + H, 40, B, H, dtype, device)
+    out, (c, h) = lstm_recurrence_q(*args, packed=pack_w_h_q(args[1]))
+    want, (c_ref, h_ref) = recurrence_q(*args)
+    torch.cuda.synchronize()
+    flips = (torch.round(out * 127) != torch.round(want * 127)).float().mean().item()
+    for got, ref in ((out, want), (c, c_ref), (h, h_ref)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                                   atol=K2_SEQ_TOL, err_msg=f"h_q differing: {flips:.2%}")
+    for b, n in enumerate(args[5].tolist()):
+        assert torch.all(out[n:, b] == 0)
+
+
+def test_int8_matmul_is_exact_on_the_card(device):
+    """K = 2048 with every operand at +-127: 33.0 M per sum, past float32's
+    2^24; narrow and ragged shapes too."""
+    from stt_tpu_torch.ops.quant import int8_matmul
+
+    rs = np.random.RandomState(0)
+    for m, k, n in ((16, 2048, 29), (1, 494, 2048), (60, 104, 64)):
+        x = torch.from_numpy(rs.choice([-127, 127], (m, k)).astype(np.int8))
+        w = torch.from_numpy(rs.choice([-127, 127], (k, n)).astype(np.int8))
+        x[0], w[:, 0] = 127, 127
+        got = int8_matmul(x.to(device), w.to(device))
+        assert got.dtype == torch.int32 and got[0, 0].item() == k * 127 * 127
+        assert torch.equal(got.cpu(), x.int() @ w.int())
+
+
+def test_int8_model_on_card_launches_k2_and_matches_cpu(device, tmp_path):
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.artifact import build_metadata, save_artifact
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+    from stt_tpu_torch.serve import Model
+
+    config = ModelConfig(n_hidden=64, n_cell_dim=128, n_out=4)
+    alphabet = Alphabet().init_from_labels(["a", "b", " "])
+    path = save_artifact(str(tmp_path / "m"), DeepSpeech(config, generator=torch.Generator().manual_seed(0)),
+                         build_metadata(config, FeatureConfig(), alphabet, beam_width=4), alphabet)
+    card = Model(path, quantized_inference=True)
+    cpu = Model(path, quantized_inference=True, device="cpu")
+    rs = np.random.RandomState(3)
+    feats = (rs.randn(2, 30, 26) * 3).astype(np.float32)
+    before = (lstm_recurrence_q.launches, lstm_recurrence.launches)
+    got = card.infer_logits(feats, [30, 17])
+    assert (lstm_recurrence_q.launches, lstm_recurrence.launches) == (before[0] + 1, before[1])
+    want = cpu.infer_logits(feats, [30, 17])
+    # rounding-boundary flips of x_q and h_q between the two devices
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=5e-2)
+
+
+# --- K5: the beam scan ------------------------------------------------------
+
+BEAM_FIXTURES = [
+    # B, T, C, W, cutoff_top_n, cutoff_prob, seed, peaky, blank_id, ignored
+    (2, 12, 8, 8, 40, 1.0, 0, False, None, ()),
+    (2, 24, 29, 16, 40, 1.0, 2, True, None, ()),
+    (2, 16, 29, 24, 10, 0.9, 4, False, None, ()),
+    (1, 16, 29, 16, 20, 1.0, 5, False, None, ()),
+    (2, 16, 32, 16, 40, 1.0, 6, False, 0, (1, 2)),
+    (3, 40, 29, 32, 40, 1.0, 7, True, None, ()),
+    (2, 20, 29, 128, 40, 1.0, 8, False, None, ()),
+    (1, 10, 127, 128, 40, 1.0, 9, True, None, ()),
+    (2, 20, 5, 3, 40, 1.0, 10, False, None, ()),
+    # beams above the TPU kernel's 128 slots: 512-slot state, int32 plane
+    (2, 16, 29, 130, 40, 1.0, 11, True, None, ()),
+    (2, 20, 29, 500, 40, 1.0, 12, False, None, ()),
+    (1, 12, 31, 512, 40, 1.0, 13, True, None, ()),
+    (1, 12, 63, 256, 20, 0.9, 14, False, None, ()),
+]
+
+
+def beam_probs(B, T, C, seed, peaky):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(B, T, C)).astype(np.float32)
+    if peaky:
+        logits = logits * 4.0
+        logits[:, ::3, -1] += 6.0  # frequent strong blanks
+    lens = np.full((B,), T, np.int32)
+    lens[0] = max(1, T - 3)
+    return torch.softmax(torch.from_numpy(logits), dim=-1), torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("fixture", BEAM_FIXTURES)
+def test_beam_kernel_matches_plain(device, fixture):
+    from stt_tpu_torch.decode.device import beam_scan_plain, logaddexp
+    from stt_tpu_torch.ops import beam_kernel
+
+    B, T, C, W, top_n, cprob, seed, peaky, blank_id, ignored = fixture
+    probs, lens = beam_probs(B, T, C, seed, peaky)
+    probs, lens = probs.to(device), lens.to(device)
+    before = beam_kernel.beam_scan.launches
+    state, scores, packed = beam_kernel.beam_scan(probs, lens, W, top_n, cprob, blank_id, ignored)
+    torch.cuda.synchronize()
+    assert beam_kernel.beam_scan.launches == before + 1
+    assert packed.dtype == (torch.int16 if W <= 128 else torch.int32)
+    start = beam_kernel.init_state(B, device, beam_kernel.state_slots(W))
+    plain, src, char = beam_scan_plain(
+        beam_kernel.state_to_plain(start, W), probs, lens, W, top_n, cprob, blank_id, ignored)
+    got_src, got_char = beam_kernel.unpack_bp(packed.cpu().numpy())
+    np.testing.assert_array_equal(got_src, src.cpu().numpy())
+    np.testing.assert_array_equal(got_char, char.cpu().numpy())
+    want = logaddexp(plain[0], plain[1]).cpu().numpy()
+    finite = np.isfinite(want)
+    assert np.array_equal(np.isfinite(scores.cpu().numpy()), finite)
+    np.testing.assert_allclose(scores.cpu().numpy()[finite], want[finite], rtol=0, atol=1e-4)
+    # the kernel's final state is the plain version's, slot for slot
+    for got, ref in zip(beam_kernel.state_to_plain(state, W)[2:], plain[2:]):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("W", [32, 500])
+def test_beam_kernel_chunks_and_handover(device, W):
+    """Chunks of 16 with the state carried equal one launch; a state made by
+    the plain version mid-stream continues in the kernel."""
+    from stt_tpu_torch.decode.device import beam_scan_plain
+    from stt_tpu_torch.ops import beam_kernel
+
+    B, T, C = 2, 48, 29
+    probs, _ = beam_probs(B, T, C, 11, True)
+    probs = probs.to(device)
+    lens = torch.tensor([T, T - 5], dtype=torch.int32, device=device)
+    _, scores, packed = beam_kernel.beam_scan(probs, lens, W)
+    state, parts = None, []
+    for t0 in range(0, T, 16):
+        state, chunk_scores, bp = beam_kernel.beam_scan(
+            probs[:, t0:t0 + 16].contiguous(), (lens - t0).clamp(0, 16), W, state=state)
+        parts.append(bp)
+    assert torch.equal(torch.cat(parts, dim=1), packed)
+    assert torch.equal(chunk_scores, scores)
+    plain, src, char = beam_scan_plain(
+        beam_kernel.state_to_plain(
+            beam_kernel.init_state(B, device, beam_kernel.state_slots(W)), W),
+        probs[:, :16].contiguous(), lens.clamp(max=16), W)
+    _, scores2, bp2 = beam_kernel.beam_scan(
+        probs[:, 16:].contiguous(), (lens - 16).clamp(min=0), W,
+        state=beam_kernel.state_from_plain(plain))
+    assert torch.equal(torch.cat([beam_kernel.pack_bp(src, char), bp2], dim=1), packed)
+    np.testing.assert_allclose(scores2.cpu().numpy(), scores.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("beam", [8, 500])
+def test_device_decode_stream_on_card_launches_k5(device, tmp_path, beam):
+    """A device-decode stream launches K5 once per chunk, at a narrow beam
+    and at the serving default of 500, and never runs the plain scan."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.artifact import build_metadata, save_artifact
+    from stt_tpu_torch.decode import device as decode_device
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.ops import beam_kernel
+    from stt_tpu_torch.serve import Model
+
+    config = ModelConfig(n_hidden=64, n_cell_dim=128, n_out=4)
+    alphabet = Alphabet().init_from_labels(["a", "b", " "])
+    path = save_artifact(str(tmp_path / "m"), DeepSpeech(config, generator=torch.Generator().manual_seed(0)),
+                         build_metadata(config, FeatureConfig(), alphabet, beam_width=beam), alphabet)
+    model = Model(path)
+    audio = np.random.RandomState(0).uniform(-0.3, 0.3, 24000).astype(np.float32)
+    before = (beam_kernel.beam_scan.launches, decode_device.scan.plain_scans)
+    stream = model.create_stream(device_decode=True)
+    stream.feed_audio_content(audio)
+    text = stream.finish_stream()
+    _, probs = model.stt_with_emissions(audio)
+    chunks = -(-probs.shape[0] // 16)
+    assert beam_kernel.beam_scan.launches == before[0] + chunks
+    assert decode_device.scan.plain_scans == before[1]
+    # a host array goes to the card by default and launches the kernel too
+    want = decode_device.ctc_beam_search_decoder_device(
+        probs[None], [probs.shape[0]], alphabet, beam_size=beam)[0][0]
+    assert beam_kernel.beam_scan.launches == before[0] + chunks + 1
+    assert text == want.transcript
+
+
+def test_shapes_beyond_the_beam_kernel_raise_on_the_card(device):
+    """The plain scan never stands in for the kernel on CUDA tensors."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.decode import device as decode_device
+
+    probs = torch.softmax(torch.randn(1, 8, 5, generator=torch.Generator().manual_seed(0)), -1)
+    alphabet = Alphabet().init_from_labels(["a", "b", "c", " "])
+    before = decode_device.scan.plain_scans
+    with pytest.raises(ValueError, match="on the card"):
+        decode_device.ctc_beam_search_decoder_device(probs.to(device), [8], alphabet, beam_size=600)
+    with pytest.raises(ValueError, match="on the card"):
+        decode_device.device_beam_search(torch.full((1, 4, 256), 1 / 256, device=device), [4], 16)
+    assert decode_device.scan.plain_scans == before

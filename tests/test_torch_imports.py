@@ -34,10 +34,13 @@ def test_every_module_imports_without_jax_or_stt_tpu():
                     "stt_tpu_torch.train.checkpoints", "stt_tpu_torch.train.trainer",
                     "stt_tpu_torch.train.__main__"}
         assert training <= set(names), training - set(names)
+        opt_in = {"stt_tpu_torch.ops.quant", "stt_tpu_torch.ops.beam_kernel",
+                  "stt_tpu_torch.decode.device"}
+        assert opt_in <= set(names), opt_in - set(names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 29
+    assert int(proc.stdout.strip()) >= 31
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():
@@ -73,12 +76,15 @@ def test_model_defaults_to_cuda_and_raises_without_it(tmp_path):
         path = save_artifact({str(tmp_path / "m")!r}, model,
                              build_metadata(cfg, FeatureConfig(), alphabet), alphabet)
         assert Model(path, device="cpu").device.type == "cpu"
-        try:
-            Model(path)
-        except RuntimeError as e:
-            assert "CUDA is not available" in str(e)
-        else:
-            raise AssertionError("Model(path) ran without CUDA")
+        assert Model(path, quantized_inference=True, device="cpu")._qparams is not None
+        assert Model(path, device="cpu").create_stream(device_decode=True)._state.device_decode
+        for quantized in (False, True):
+            try:
+                Model(path, quantized_inference=quantized)
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e)
+            else:
+                raise AssertionError("Model(path) ran without CUDA")
     """, CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0, proc.stderr
 

@@ -146,11 +146,54 @@ def test_infer_logits_batch(models):
 def test_unported_surfaces_raise(artifacts, models):
     _, model = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(artifacts["plain"], quantized_inference=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.enable_external_scorer("lm.scorer")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.create_stream(device_decode=True)
+
+
+def test_quantized_inference_model_routes_logits_through_int8(artifacts, models):
+    """Model(quantized_inference=True) quantizes once and `infer_logits`
+    takes the int8 path: close to the float logits, not equal to them, and
+    stt_tpu's int8 logits to the float tolerance (no rounding-boundary flip
+    on these seeded inputs, see tests/test_torch_quant.py)."""
+    jax_model, model = models
+    q_model = Model(artifacts["plain"], quantized_inference=True, device="cpu")
+    assert q_model._qparams is not None and model._qparams is None
+    rs = np.random.RandomState(5)
+    batch = (rs.randn(2, 21, 26) * 5).astype(np.float32)
+    lengths = np.array([21, 13], np.int32)
+    got = q_model.infer_logits(batch, lengths).numpy()
+    ref = model.infer_logits(batch, lengths).numpy()
+    assert got.shape == ref.shape == (2, 21, len(LABELS) + 1)
+    assert 0 < np.abs(got - ref).max() < 0.5
+    want = np.asarray(JaxModel(artifacts["plain"], quantized_inference=True)
+                      .infer_logits(batch, lengths))
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOGITS_TOL)
+
+
+def test_device_decode_stream_matches_the_batch_device_decoder(models):
+    """create_stream(device_decode=True) decodes on the model's device:
+    chunk by chunk it gives what the batch device decoder gives on the
+    emissions of the same audio, and the host sees no probabilities."""
+    from stt_tpu_torch.decode.device import (
+        DeviceStreamingDecoder,
+        ctc_beam_search_decoder_device,
+    )
+
+    _, model = models
+    audio = speech_like(6, 2.4)
+    stream = model.create_stream(device_decode=True)
+    assert isinstance(stream._state.decoder, DeviceStreamingDecoder)
+    for start in range(0, len(audio), 5000):
+        stream.feed_audio_content(audio[start:start + 5000])
+        stream.intermediate_decode()
+    meta = stream.finish_stream_with_metadata(2)
+    assert stream._state.probs_history.shape[0] == 0
+    _, probs = model.stt_with_emissions(audio)
+    want = ctc_beam_search_decoder_device([probs], [len(probs)], model.alphabet,
+                                          beam_size=BEAM, num_results=2, device="cpu")[0]
+    for cand, ref in zip(meta.transcripts, want):
+        assert cand.transcript == ref.transcript
+        assert [t.timestep for t in cand.tokens] == ref.timesteps
+        assert cand.confidence == pytest.approx(ref.confidence, abs=1e-5)
 
 
 def test_client_json_and_unported_flags(artifacts, tmp_path, capsys):

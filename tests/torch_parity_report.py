@@ -20,9 +20,11 @@ import torch  # noqa: E402
 
 import test_torch_ctc as ctc  # noqa: E402
 import test_torch_decode as dec  # noqa: E402
+import test_torch_device_decode as ddc  # noqa: E402
 import test_torch_lstm as lst  # noqa: E402
 import test_torch_lstm_train as ltr  # noqa: E402
 import test_torch_model as mod  # noqa: E402
+import test_torch_quant as qnt  # noqa: E402
 import test_torch_serve as srv  # noqa: E402
 import test_torch_train_step as stp  # noqa: E402
 from stt_tpu.artifact import build_metadata, save_artifact  # noqa: E402
@@ -98,6 +100,7 @@ def main():
                      "equal" if text == want_text else "differs"))
 
     rows.extend(training_rows())
+    rows.extend(opt_in_rows())
 
     print("| port (stt_tpu_torch.) | held against (stt_tpu.) | dtype | max abs diff, CPU |")
     print("|---|---|---|---|")
@@ -175,6 +178,75 @@ def training_rows():
                      f"{abs(m.loss.item() - float(jm.loss)):.3g}; "
                      f"{abs(m.grad_norm.item() - float(jm.grad_norm)):.3g} "
                      f"(non_finite equal: {bool(np.array_equal(~finite, np.asarray(jm.non_finite)))})"))
+    return rows
+
+
+def opt_in_rows():
+    """int8 inference (K2's plain version and the quantized forward) and
+    device decode (K5's plain version)."""
+    from stt_tpu_torch.artifact import qparams_from_numpy
+    from stt_tpu_torch.decode import device
+    from stt_tpu_torch.ops import beam_kernel, quant
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+
+    rows = []
+    params = qnt.jax_params()
+    jax_cfg, cfg = qnt.configs()
+    want = qparams_from_numpy(qnt.jax_qparams(params))
+    got = quant.quantize_params(dict(params_from_numpy(params, cfg).named_parameters()), cfg)
+    equal = all(torch.equal(got[n].w_q, want[n].w_q) for n in (*quant.DENSE, "lstm_in"))
+    equal = equal and torch.equal(got["lstm_rec"]["w_h_q"], want["lstm_rec"]["w_h_q"])
+    scale = maxdiff([(got[n].w_scale, want[n].w_scale) for n in (*quant.DENSE, "lstm_in")])
+    rows.append(("ops.quant.quantize_params (int8 weights; scales)", "ops.quant.quantize_params",
+                 "int8 / float32", f"{'equal' if equal else 'differ'}; {scale:.3g}"))
+
+    for dtype, (jdt, tdt) in (("float32", (jnp.float32, torch.float32)),
+                              ("bfloat16", (jnp.bfloat16, torch.bfloat16))):
+        x_proj, w_h_q, step_scale, c0, h0, seq = qnt.rec_case(8)
+        xp_j = jnp.asarray(x_proj).astype(jdt)
+        xp_t = torch.from_numpy(np.array(xp_j.astype(jnp.float32))).to(tdt)
+        out, (c, h) = lstm_recurrence_q(xp_t, *(torch.from_numpy(a) for a in
+                                                (w_h_q, step_scale, c0, h0, seq)))
+        k_out, k_c, k_h = qnt.lstm_fused_q_impl(
+            xp_j, *(jnp.asarray(a) for a in (w_h_q, step_scale, c0, h0)),
+            jnp.asarray(seq).reshape(-1, 1), interpret=True)
+        rows.append(("ops.quant.recurrence_q (out, c, h)", "ops.lstm_fused_q_impl (Pallas K2, "
+                     "interpret)", dtype,
+                     f"{maxdiff([(out, k_out), (c, k_c), (h, k_h)]):.3g} "
+                     f"({qnt.flips(out.numpy(), k_out):.3%} of h_q differ)"))
+
+    jax_cfg = qnt.JaxModelConfig(**dict(qnt.GEOMETRY, dropout_rates=(0.0,) * 6, fused_lstm=False))
+    jq = qnt.jax_quant.quantize_params(params, jax_cfg)
+    feats, seq = qnt.features(4)
+    want_logits, (c_w, h_w) = qnt.jax_quant.apply_model_quantized(
+        jq, jnp.asarray(feats), seq_len=jnp.asarray(seq), config=jax_cfg)
+    logits, (c, h) = quant.apply_model_quantized(
+        qparams_from_numpy(jax.device_get(jq)), torch.from_numpy(feats),
+        seq_len=torch.from_numpy(seq), config=cfg)
+    rows.append(("ops.quant.apply_model_quantized (logits, c, h)", "ops.quant.apply_model_quantized",
+                 "int8", maxdiff([(logits, want_logits), (c, c_w), (h, h_w)])))
+
+    ddc.jax_beam_kernel._INTERPRET = True
+    equal, diffs = True, []
+    for B, T, C, W, top_n, cprob, seed, peaky, blank_id, ignored in ddc.FIXTURES.values():
+        probs, lens = ddc.fixture_probs(B, T, C, seed, peaky)
+        scores, src, char = device._device_beam_scan(
+            torch.from_numpy(probs), torch.from_numpy(lens), W, top_n, cprob, blank_id, ignored)
+        s_x, src_x, char_x = ddc.jax_device._device_beam_scan(
+            jnp.asarray(probs), jnp.asarray(lens), W, top_n, cprob, blank_id, tuple(ignored))
+        _, s_k, packed = ddc.jax_beam_kernel.beam_scan(probs, lens, W, top_n, cprob, blank_id,
+                                                       tuple(ignored))
+        src_k, char_k = beam_kernel.unpack_bp(np.asarray(packed))
+        equal = equal and all(np.array_equal(a, b) for a, b in (
+            (src.numpy(), np.asarray(src_x)), (char.numpy(), np.asarray(char_x)),
+            (src.numpy(), src_k), (char.numpy(), char_k)))
+        finite = np.isfinite(np.asarray(s_x))
+        diffs.append(maxdiff([(scores.numpy()[finite], np.asarray(s_x)[finite]),
+                              (scores.numpy()[finite], np.asarray(s_k)[finite])]))
+    rows.append(("decode.device.beam_scan_plain (backpointers; scores), 5 fixtures",
+                 "decode.device._device_beam_scan and ops.beam_kernel.beam_scan (Pallas K5, "
+                 "interpret)", "float32",
+                 f"{'equal' if equal else 'differ'}; {max(diffs):.3g}"))
     return rows
 
 
