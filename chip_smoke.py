@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of stt_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed N] [--out REPORT.json]
+    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4]
 
 1. Setup: prints the card's name and power limit, turns TF32 off, builds
    every CUDA kernel of the package from its sources (build/kernels/), one
@@ -10,8 +10,11 @@
    card at the shapes of the main path and beyond, and times the kernel,
    the plain version, the bound and, where one exists, the one PyTorch
    call that computes the same function:
-   - K1, the inference recurrence, at H = 2048, B in {1, 8, 32}, T in
-     {16, 200}, f32 and bf16, ragged lengths, non-zero initial state;
+   - K1, the inference recurrence, at H = 2048, B in {1, 8, 16, 32}, T in
+     {16, 200} and the batch request's (B, T) = (16, 240), f32 and bf16,
+     ragged lengths, non-zero initial state, with the launch plan, the time
+     per step, the ratio to cuDNN and, at a stream's chunk (B = 1, T = 16),
+     the time with the L2 overwritten between calls;
    - K3 and K4, the training forward with stashes and the reverse sweep,
      at H = 2048, B in {8, 32}, T in {50, 200} and at the training phase's
      shape (B = 16, T = 256), f32 and bf16, ragged lengths, non-zero
@@ -168,6 +171,24 @@ def recurrence_bounds(kind: str, T: int, B: int, H: int, valid_steps: int,
     return ms, by, T * w_h / HBM_BYTES_PER_S * 1e3
 
 
+def streaming_floors(plan, T: int, H: int, dtype: torch.dtype, device) -> dict:
+    """Floors of a recurrence that keeps part of W_h in shared memory for the
+    whole call and streams the rest from device memory at every step, over T
+    steps: for this launch plan's resident share, and for a design that
+    filled every SM's shared memory with weights. (The first step also
+    reads the resident part once: one more step's worth at most.)"""
+    props = torch.cuda.get_device_properties(device)
+    w_h = H * 4 * H * (torch.finfo(dtype).bits // 8)
+    streamed = plan.tiles * plan.groups * (plan.chunks - plan.resident_chunks) * 16384
+    on_chip = props.multi_processor_count * getattr(props, "shared_memory_per_block_optin", 232448)
+    return {
+        "streamed_bytes_per_step": streamed,
+        "plan_floor_ms": (T * streamed + min(w_h, plan.tiles * plan.resident_chunks * 16384))
+                         / HBM_BYTES_PER_S * 1e3,
+        "all_smem_floor_ms": (T * max(w_h - on_chip, 0) + min(w_h, on_chip)) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
 def cudnn_lstm(w_h: torch.Tensor, H: int, device) -> torch.nn.LSTM:
     """torch.nn.LSTM (cuDNN) computing K1's function over x_proj at full
     lengths: the input weights are the permutation that takes x_proj's
@@ -185,67 +206,114 @@ def cudnn_lstm(w_h: torch.Tensor, H: int, device) -> torch.nn.LSTM:
     return lstm
 
 
+def flush_l2(device) -> torch.Tensor:
+    """A buffer larger than the 50 MB L2: writing it evicts what lay there."""
+    return torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=device)
+
+
+def alone_ms(fn, spoil, reps: int) -> float:
+    """Mean milliseconds of fn() run alone: events around each run, a
+    synchronise after it, so the host's launches are not hidden behind the
+    run before. With `spoil` (see flush_l2) each run also finds the L2
+    overwritten, as a stream's chunk finds it after the dense layers."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        if spoil is not None:
+            spoil.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def k1_phase(device, seed: int) -> list:
     from stt_tpu_torch.models.lstm import recurrence
-    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence, pack_w_h, plan_for
 
     H = 2048
     gen = torch.Generator().manual_seed(seed)
     limit = (6.0 / (6 * H)) ** 0.5  # lstm_init's Glorot limit at this width
     w32 = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * limit).to(device)
+    spoil = flush_l2(device)
     records = []
+    # a stream's chunk (B = 1, T = 16), the batch request (B = 16, T = 240)
+    # and the shapes around them
+    shapes = [(B, T) for B in (1, 8, 16, 32) for T in (16, 200)] + [(16, 240)]
     for dtype in (torch.float32, torch.bfloat16):
         w_h = w32.to(dtype).contiguous()
+        packed = pack_w_h(w_h)  # kept across calls, as the serving model keeps it
+        pack_ms = cuda_ms(lambda: pack_w_h(w_h), 5)
         lstm = cudnn_lstm(w_h, H, device) if dtype == torch.float32 else None
-        for B in (1, 8, 32):
-            for T in (16, 200):
-                x_proj = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(device).to(dtype)
-                c0 = (torch.randn(B, H, generator=gen) * 0.1).to(device)
-                h0 = ((torch.rand(B, H, generator=gen) * 2 - 1) * 0.1).to(device)
-                seq = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
-                seq[0] = T
-                seq = seq.to(device)
-                got, (c, h) = lstm_recurrence(x_proj, w_h, c0, h0, seq)
-                want, (c_ref, h_ref) = recurrence(x_proj, w_h, c0, h0, seq)
-                torch.cuda.synchronize()
-                err = max(
-                    (got - want).abs().max().item(),
-                    (c - c_ref).abs().max().item(),
-                    (h - h_ref).abs().max().item(),
+        for B, T in shapes:
+            x_proj = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(device).to(dtype)
+            c0 = (torch.randn(B, H, generator=gen) * 0.1).to(device)
+            h0 = ((torch.rand(B, H, generator=gen) * 2 - 1) * 0.1).to(device)
+            seq = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+            seq[0] = T
+            seq = seq.to(device)
+            got, (c, h) = lstm_recurrence(x_proj, w_h, c0, h0, seq)  # packs per call
+            kept, (c_kept, h_kept) = lstm_recurrence(x_proj, None, c0, h0, seq, packed=packed)
+            want, (c_ref, h_ref) = recurrence(x_proj, w_h, c0, h0, seq)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, kept) and torch.equal(c, c_kept) and torch.equal(h, h_kept)):
+                raise AssertionError(f"K1 {dtype} B={B} T={T}: kept packed weights give another result")
+            err = max(
+                (got - want).abs().max().item(),
+                (c - c_ref).abs().max().item(),
+                (h - h_ref).abs().max().item(),
+            )
+            if not err <= K1_TOL[dtype]:
+                raise AssertionError(
+                    f"K1 {dtype} B={B} T={T}: max abs diff {err} > {K1_TOL[dtype]}"
                 )
-                if not err <= K1_TOL[dtype]:
-                    raise AssertionError(
-                        f"K1 {dtype} B={B} T={T}: max abs diff {err} > {K1_TOL[dtype]}"
-                    )
-                reps = 20 if T <= 16 else 5
-                ms = cuda_ms(lambda: lstm_recurrence(x_proj, w_h, c0, h0, seq), reps)
-                plain_ms = cuda_ms(lambda: recurrence(x_proj, w_h, c0, h0, seq), reps)
-                library_ms = library_err = None
-                if lstm is not None:
-                    full = torch.full((B,), T, dtype=torch.int32, device=device)
-                    k_out, (k_c, k_h) = lstm_recurrence(x_proj, w_h, c0, h0, full)
+            reps = 20 if T <= 16 else 5
+            run = lambda: lstm_recurrence(x_proj, None, c0, h0, seq, packed=packed)
+            ms = cuda_ms(run, reps)
+            # the plain version is a host-bound loop: one timed run of the long ones
+            plain_ms = cuda_ms(lambda: recurrence(x_proj, w_h, c0, h0, seq), reps if T <= 16 else 1)
+            library_ms = library_err = None
+            if lstm is not None:
+                full = torch.full((B,), T, dtype=torch.int32, device=device)
+                k_out, (k_c, k_h) = lstm_recurrence(x_proj, w_h, c0, h0, full)
+                with torch.no_grad():
+                    l_out, (l_h, l_c) = lstm(x_proj, (h0[None], c0[None]))
+                library_err = max(
+                    (k_out - l_out).abs().max().item(),
+                    (k_c - l_c[0]).abs().max().item(),
+                    (k_h - l_h[0]).abs().max().item(),
+                )
+                if library_err <= 1e-4:
                     with torch.no_grad():
-                        l_out, (l_h, l_c) = lstm(x_proj, (h0[None], c0[None]))
-                    library_err = max(
-                        (k_out - l_out).abs().max().item(),
-                        (k_c - l_c[0]).abs().max().item(),
-                        (k_h - l_h[0]).abs().max().item(),
-                    )
-                    if library_err <= 1e-4:
-                        with torch.no_grad():
-                            library_ms = cuda_ms(lambda: lstm(x_proj, (h0[None], c0[None])), reps)
-                bound, bound_by, w_step_ms = recurrence_bounds(
-                    "k1", T, B, H, int(seq.sum()), dtype)
-                rec = {
-                    "dtype": str(dtype).replace("torch.", ""), "B": B, "T": T, "H": H,
-                    "max_abs_err": err, "tol": K1_TOL[dtype], "ms": ms,
-                    "plain_ms": plain_ms, "library_ms": library_ms,
-                    "library_max_abs_err": library_err, "bound_ms": bound,
-                    "bound_by": bound_by, "w_h_per_step_bound_ms": w_step_ms,
-                    "us_per_step": ms / T * 1e3,
-                }
-                print("k1", json.dumps(rec), flush=True)
-                records.append(rec)
+                        library_ms = cuda_ms(lambda: lstm(x_proj, (h0[None], c0[None])), reps)
+            bound, bound_by, w_step_ms = recurrence_bounds(
+                "k1", T, B, H, int(seq.sum()), dtype)
+            rec = {
+                "dtype": str(dtype).replace("torch.", ""), "B": B, "T": T, "H": H,
+                "kernel": "persistent", "plan": plan_for(B, H, dtype, device).describe(),
+                **streaming_floors(plan_for(B, H, dtype, device), T, H, dtype, device),
+                "max_abs_err": err, "tol": K1_TOL[dtype], "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "library_max_abs_err": library_err, "bound_ms": bound,
+                "bound_by": bound_by, "w_h_per_step_bound_ms": w_step_ms,
+                "us_per_step": ms / T * 1e3,
+                "vs_library": (ms / library_ms) if library_ms else None,
+                "pack_w_h_ms": pack_ms,
+            }
+            if (B, T) == (1, 16):  # a stream finds W_h cold after the dense layers
+                rec["alone_ms"] = alone_ms(run, None, 10)
+                rec["l2_flushed_ms"] = alone_ms(run, spoil, 10)
+                if lstm is not None and library_ms is not None:
+                    with torch.no_grad():
+                        call = lambda: lstm(x_proj, (h0[None], c0[None]))
+                        rec["alone_library_ms"] = alone_ms(call, None, 10)
+                        rec["l2_flushed_library_ms"] = alone_ms(call, spoil, 10)
+            print("k1", json.dumps(rec), flush=True)
+            records.append(rec)
         del lstm
     return records
 
@@ -261,6 +329,7 @@ def assert_zs_close(got: torch.Tensor, want: torch.Tensor, tol: float, what: str
 def train_kernel_phase(device, seed: int) -> list:
     """K3 and K4 against their plain versions, timed beside their bound,
     the plain versions and cuDNN's training forward and backward."""
+    from stt_tpu_torch.ops.lstm_kernel import plan_for
     from stt_tpu_torch.ops.lstm_train import (
         lstm_train_bwd, lstm_train_fwd, train_backward, train_forward,
     )
@@ -308,7 +377,9 @@ def train_kernel_phase(device, seed: int) -> list:
 
             reps = 3 if T >= 200 else 10
             rec = {"dtype": str(dtype).replace("torch.", ""), "B": B, "T": T, "H": H,
-                   "tol": tol, "valid_steps": int(seq.sum())}
+                   "tol": tol, "valid_steps": int(seq.sum()), "fwd_kernel": "persistent",
+                   "fwd_plan": plan_for(B, H, dtype, device).describe(),
+                   "fwd_floors": streaming_floors(plan_for(B, H, dtype, device), T, H, dtype, device)}
             for kind, err, fn, plain, args in (
                 ("fwd", fwd_err, lstm_train_fwd, train_forward, fwd_args),
                 ("bwd", bwd_err, lstm_train_bwd, train_backward, bwd_args),
@@ -318,12 +389,15 @@ def train_kernel_phase(device, seed: int) -> list:
                     kind, T, B, H, int(seq.sum()), dtype)
                 rec[kind] = {
                     "max_abs_err": err, "ms": ms, "us_per_step": ms / T * 1e3,
-                    "plain_ms": cuda_ms(lambda: plain(*args), reps),
+                    "plain_ms": cuda_ms(lambda: plain(*args), 1 if T >= 200 else 3),
                     "bound_ms": bound, "bound_by": bound_by, "w_h_per_step_bound_ms": w_step_ms,
-                    "library_ms": None, "library_rel_err": None,
+                    "library_ms": None, "library_rel_err": None, "vs_library": None,
                 }
             if lstm is not None:
                 cudnn_times(rec, lstm, x_proj, w_h, c0, h0, dout, dc_T, dh_T, reps)
+                for kind in ("fwd", "bwd"):
+                    if rec[kind]["library_ms"]:
+                        rec[kind]["vs_library"] = rec[kind]["ms"] / rec[kind]["library_ms"]
             print("k3k4", json.dumps(rec), flush=True)
             records.append(rec)
         del lstm
@@ -626,19 +700,28 @@ def device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
+RECURRENCE_KERNEL = "recurrence_kernel"  # K1's and K3's persistent kernel, by name
+
+
 def profiled(name: str, audio_s: float, fn, kernel_names: dict) -> tuple:
     """One request under torch.profiler: its wall time, the device time of
     all kernels and copies in it and of each named kernel (by a substring
-    of the kernel's name), and the device's idle share. Returns (record,
-    the request's result)."""
+    of the kernel's name), and the device's idle share. Where K1 is named,
+    its device events are counted too: the recurrence must show one kernel
+    per wrapper call, not one per step. Returns (record, the request's
+    result)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence
+
     torch.cuda.synchronize()
+    calls = lstm_recurrence.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+    calls = lstm_recurrence.launches - calls
     events = device_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     rec = {"request": f"{name} (profiled)", "audio_s": audio_s, "wall_ms": wall_ms,
@@ -646,6 +729,12 @@ def profiled(name: str, audio_s: float, fn, kernel_names: dict) -> tuple:
            "device_idle_share": (1 - device_ms / wall_ms) if device_ms else None}
     for key, part in kernel_names.items():
         rec[key] = sum(e.self_device_time_total for e in events if part in e.key) / 1e3 or None
+    if "k1_device_ms" in kernel_names and device_ms:
+        rec["k1_wrapper_calls"] = calls
+        rec["k1_device_events"] = sum(e.count for e in events if RECURRENCE_KERNEL in e.key)
+        if rec["k1_device_events"] != calls:
+            raise AssertionError(f"{name}: {rec['k1_device_events']} recurrence kernels on the "
+                                 f"card for {calls} wrapper calls")
     return rec, result
 
 
@@ -655,7 +744,7 @@ def profile_request(gpu, audio: np.ndarray, alphabet) -> dict:
     from stt_tpu_torch.decode import ctc_beam_search_decoder
 
     rec, (_, probs) = profiled("stt_with_emissions", len(audio) / gpu.sample_rate(),
-                               lambda: gpu.stt_with_emissions(audio), {"k1_device_ms": "lstm_step"})
+                               lambda: gpu.stt_with_emissions(audio), {"k1_device_ms": RECURRENCE_KERNEL})
     start = time.perf_counter()
     ctc_beam_search_decoder(probs, alphabet, BEAM_WIDTH)
     rec["host_decode_ms"] = (time.perf_counter() - start) * 1e3
@@ -877,17 +966,17 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
     gpu.set_model_beam_width(500)
     wide_profile = profiled("stream[320ms, device_decode, beam 500]", len(audios[2]) / rate,
                             device_stream_request,
-                            {"k1_device_ms": "lstm_step", "k5_device_ms": "beam_scan_kernel"})[0]
+                            {"k1_device_ms": RECURRENCE_KERNEL, "k5_device_ms": "beam_scan_kernel"})[0]
     gpu.set_model_beam_width(BEAM_WIDTH)
     profiles = [
         profiled(f"stream[320ms, device_decode, beam {BEAM_WIDTH}]", len(audios[2]) / rate,
                  device_stream_request,
-                 {"k1_device_ms": "lstm_step", "k5_device_ms": "beam_scan_kernel"})[0],
+                 {"k1_device_ms": RECURRENCE_KERNEL, "k5_device_ms": "beam_scan_kernel"})[0],
         wide_profile,
         profiled("infer_logits[B=16, int8]", sum(len(a) for a in batch) / rate,
                  lambda: qgpu.infer_logits(padded, lengths), {"k2_device_ms": "lstm_step_q"})[0],
         profiled("infer_logits[B=16]", sum(len(a) for a in batch) / rate,
-                 lambda: gpu.infer_logits(padded, lengths), {"k1_device_ms": "lstm_step"})[0],
+                 lambda: gpu.infer_logits(padded, lengths), {"k1_device_ms": RECURRENCE_KERNEL})[0],
     ]
     for rec in profiles:
         print("profile", json.dumps(rec), flush=True)
@@ -1015,13 +1104,17 @@ def step_profile(state, batch, seed: int) -> dict:
         return sum(e.self_device_time_total for e in events if match(e.key)) / 1e3
 
     busy = device_ms(lambda k: True)
-    k3 = device_ms(lambda k: "lstm_train_fwd" in k)
+    k3 = device_ms(lambda k: RECURRENCE_KERNEL in k)
+    k3_events = sum(e.count for e in events if RECURRENCE_KERNEL in e.key)
+    if busy and k3_events != 1:
+        raise AssertionError(f"one train step showed {k3_events} K3 kernels on the card, not 1")
     k4 = device_ms(lambda k: "lstm_train_bwd" in k)
     gemm = device_ms(lambda k: any(s in k.lower() for s in ("gemm", "cutlass", "sm90_xmma")))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     rec = {
         **phases, "profiled_wall_ms": wall_ms, "device_busy_ms": busy or None,
-        "k3_device_ms": k3 or None, "k4_device_ms": k4 or None, "gemm_device_ms": gemm or None,
+        "k3_device_ms": k3 or None, "k3_device_events": k3_events,
+        "k4_device_ms": k4 or None, "gemm_device_ms": gemm or None,
         "other_device_ms": (busy - k3 - k4 - gemm) if busy else None,
         "device_idle_share": (1 - busy / wall_ms) if busy else None,
         "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top],
@@ -1132,6 +1225,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="write the full record here as JSON")
+    parser.add_argument("--phases", default="",
+                        help="comma-separated kernel phases (k1, k2, k3k4, k5) to run alone, "
+                             "for work on a kernel: prints their records and no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1151,6 +1247,13 @@ def main() -> int:
         print(f"built {name}:\n{report}", flush=True)
     print(f"build: {time.time() - t0:.1f} s", flush=True)
 
+    if args.phases:
+        alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase}
+        for name in args.phases.split(","):
+            alone[name](device, args.seed)
+        print(f"gpu: {card}")
+        print("chip_smoke: ran only", args.phases, "- no result line")
+        return 0
     k1 = k1_phase(device, args.seed)
     k2 = k2_phase(device, args.seed)
     k3k4 = train_kernel_phase(device, args.seed)

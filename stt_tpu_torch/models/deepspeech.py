@@ -15,7 +15,10 @@ serving runs the model under `torch.no_grad()`.
 The LSTM takes one of two routes, decided by the grad mode and the
 tensor's device alone: when autograd records, `lstm_train` (the training
 kernels K3/K4, with their backward); otherwise `lstm_fused` (the inference
-kernel K1). On CPU tensors both run their plain PyTorch versions.
+kernel K1). On CPU tensors both run their plain PyTorch versions. For K1 the
+module keeps the recurrent weights in the kernel's layout (`pack_w_h`)
+beside the parameters, so that serving does not repack them per request;
+the copy is made anew when the parameter has been written or replaced.
 
 Dropout is that of the JAX package's `_dense`: a keep-mask drawn as
 bernoulli(1 - rate), kept values scaled by 1 / (1 - rate), on layers 1-3
@@ -32,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from stt_tpu_torch.models.lstm import State
+from stt_tpu_torch.models.lstm import State, recurrent_weights
 from stt_tpu_torch import ops  # its attributes are read at call time: ops imports models.lstm
 
 NORMED_LAYERS = ("layer_1", "layer_2", "layer_3", "layer_5")
@@ -125,6 +128,7 @@ class DeepSpeech(nn.Module):
         one they are left uninitialised for a load."""
         super().__init__()
         self.config = config
+        self._packed_w_h = None  # (what it was made from, the packed weights)
         for name, shape in param_shapes(config).items():
             value = torch.empty(shape, dtype=torch.float32, device=device)
             if generator is not None:
@@ -133,6 +137,20 @@ class DeepSpeech(nn.Module):
 
     def param(self, name: str) -> torch.Tensor:
         return getattr(self, name)
+
+    def packed_w_h(self) -> torch.Tensor:
+        """The recurrent weights in the compute dtype and K1's layout, kept
+        across requests. A write to the parameter moves its version counter
+        and a load or a move replaces its storage: either makes the copy
+        stale, and it is made anew."""
+        kernel = self.param("lstm/kernel")
+        made_from = (kernel.data_ptr(), kernel._version, kernel.device, self.config.dtype)
+        if self._packed_w_h is None or self._packed_w_h[0] != made_from:
+            n_in = kernel.shape[0] - self.config.n_cell_dim
+            with torch.no_grad():
+                w_h = recurrent_weights({"kernel": kernel}, n_in, self.config.dtype)
+                self._packed_w_h = (made_from, ops.lstm_kernel.pack_w_h(w_h))
+        return self._packed_w_h[1]
 
     def _dense(
         self,
@@ -183,11 +201,17 @@ class DeepSpeech(nn.Module):
         x = x.reshape(b, t, -1).transpose(0, 1)  # time-major for the LSTM
         lstm = {"kernel": self.param("lstm/kernel"), "bias": self.param("lstm/bias")}
         records = torch.is_grad_enabled() and (x.requires_grad or lstm["kernel"].requires_grad)
-        recurrence = ops.lstm_train if records else ops.lstm_fused
-        outputs, state = recurrence(
-            lstm, x, seq_len=seq_len, initial_state=previous_state,
-            compute_dtype=config.dtype,
-        )
+        if records:
+            outputs, state = ops.lstm_train(
+                lstm, x, seq_len=seq_len, initial_state=previous_state,
+                compute_dtype=config.dtype,
+            )
+        else:
+            outputs, state = ops.lstm_fused(
+                lstm, x, seq_len=seq_len, initial_state=previous_state,
+                compute_dtype=config.dtype,
+                packed_w_h=self.packed_w_h() if x.device.type == "cuda" else None,
+            )
         x = outputs.transpose(0, 1).reshape(b * t, -1)
         x = self._dense("layer_5", x, dropout_rate=rates[5], generator=gen)
         logits = self._dense("layer_6", x, relu=False)

@@ -28,10 +28,10 @@ import torch
 State = Tuple[torch.Tensor, torch.Tensor]
 
 
-def project_inputs(
+def input_projection(
     params: Dict[str, torch.Tensor], x: torch.Tensor, compute_dtype: torch.dtype
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [T, B, n_in] -> (x_proj [T, B, 4H] in compute_dtype, W_h [H, 4H]).
+) -> torch.Tensor:
+    """x [T, B, n_in] -> x_proj [T, B, 4H] in compute_dtype.
 
     x @ W_x is one matmul over all steps with f32 accumulation: the
     operands are rounded to compute_dtype and multiplied in f32, the bias
@@ -39,11 +39,25 @@ def project_inputs(
     T, B, n_in = x.shape
     kernel = params["kernel"]
     w_x = kernel[:n_in].to(compute_dtype)
-    w_h = kernel[n_in:].to(compute_dtype).contiguous()
     x_proj = torch.matmul(
         x.reshape(T * B, n_in).to(compute_dtype).float(), w_x.float()
     ) + params["bias"].float()
-    return x_proj.to(compute_dtype).reshape(T, B, kernel.shape[1]), w_h
+    return x_proj.to(compute_dtype).reshape(T, B, kernel.shape[1])
+
+
+def recurrent_weights(
+    params: Dict[str, torch.Tensor], n_in: int, compute_dtype: torch.dtype
+) -> torch.Tensor:
+    """W_h [H, 4H] in compute_dtype: the rows of the kernel below W_x."""
+    return params["kernel"][n_in:].to(compute_dtype).contiguous()
+
+
+def project_inputs(
+    params: Dict[str, torch.Tensor], x: torch.Tensor, compute_dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, B, n_in] -> (x_proj [T, B, 4H] in compute_dtype, W_h [H, 4H])."""
+    return (input_projection(params, x, compute_dtype),
+            recurrent_weights(params, x.shape[2], compute_dtype))
 
 
 def start_state(

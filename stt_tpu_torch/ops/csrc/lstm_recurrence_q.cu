@@ -8,7 +8,7 @@
 //     z   = x_proj[t] + float(acc) * step_scale
 //
 // then the gate math, the length mask and the f32 carry of lstm_step.cuh
-// (lstm::finish), shared with K1 and K3. x_proj holds x . W_x + bias in f32
+// (lstm::finish), the same as K1's and K3's. x_proj holds x . W_x + bias in f32
 // or bf16; step_scale [4H] is W_h's per-channel scale / 127.
 //
 // What bounds it on this card: as K1, every step reads all of W_h_q, here
@@ -19,8 +19,10 @@
 // 16 MiB the weights fit the 50 MB L2, so steps after the first can read
 // them from there.
 //
-// What the design does about it: K1's tiling (a block owns 16 units x 4
-// gates x 8 rows; its 8 warps split the k sum), with the weights re-laid
+// What the design does about it: a block owns 16 units x 4 gates x 8 rows
+// and its 8 warps split the k sum (within a warp the 32 lanes cover 16
+// units x 2 words of k; partial sums meet in shared memory, and one thread
+// per (row, unit) applies the gate math), with the weights re-laid
 // once by the wrapper so that four consecutive k of one column share a
 // 32-bit word: w4[k/4][n] holds W_h_q[k .. k+3][n] in its bytes, low byte
 // first. A lane then loads one word per gate, 16 lanes a 64-byte run, and
@@ -36,6 +38,12 @@
 
 namespace {
 
+constexpr int JT = 16;            // hidden units per block
+constexpr int KL = 32 / JT;       // rows of W_h a warp covers per load
+constexpr int KS = 8;             // warps per block, splitting the k sum
+constexpr int BT = 8;             // batch rows per block
+constexpr int THREADS = 32 * KS;
+
 __device__ __forceinline__ int8_t quantize_h(float h) {
   return static_cast<int8_t>(__float2int_rn(h * 127.0f));  // half to even
 }
@@ -47,7 +55,7 @@ __global__ void quantize_state(const float* __restrict__ h,
 }
 
 template <typename XT>
-__global__ void __launch_bounds__(lstm::THREADS)
+__global__ void __launch_bounds__(THREADS)
 lstm_step_q(const XT* __restrict__ x_proj_t,       // [B, 4H], step t
             const int32_t* __restrict__ w4,        // [H/4, 4H] packed int8x4
             const float* __restrict__ step_scale,  // [4H]
@@ -146,7 +154,7 @@ template <typename XT>
 int run(const void* x_proj, const int32_t* w4, const float* step_scale,
         float* c, float* h, int8_t* h_q, const int32_t* seq, float* out, int T,
         int B, int H, void* stream) {
-  const dim3 grid((H + lstm::JT - 1) / lstm::JT, (B + lstm::BT - 1) / lstm::BT);
+  const dim3 grid((H + JT - 1) / JT, (B + BT - 1) / BT);
   const size_t bh = (size_t)B * H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   quantize_state<<<(unsigned)((bh + 255) / 256), 256, 0, s>>>(h, h_q, (int)bh);
@@ -154,7 +162,7 @@ int run(const void* x_proj, const int32_t* w4, const float* step_scale,
     // h and h_q hold two [B, H] buffers each: step t reads [t % 2] and
     // writes the other
     const size_t from = (t % 2) * bh, to = ((t + 1) % 2) * bh;
-    lstm_step_q<XT><<<grid, lstm::THREADS, 0, s>>>(
+    lstm_step_q<XT><<<grid, THREADS, 0, s>>>(
         static_cast<const XT*>(x_proj) + (size_t)t * 4 * bh, w4, step_scale,
         h + from, h + to, reinterpret_cast<const int32_t*>(h_q + from),
         h_q + to, c, seq, out + (size_t)t * bh, t, B, H);

@@ -2,7 +2,9 @@
 // and K4 (reverse sweep).
 //
 // K3 replaces stt_tpu/ops/lstm_train.py::_fwd_kernel (launched by
-// _lstm_train_fwd_impl). It is K1's step (lstm_step.cuh) that also writes,
+// _lstm_train_fwd_impl). It is K1's persistent kernel (lstm_step.cuh: one
+// cooperative launch for all T, W_h chunks resident in shared memory, the
+// rest streamed through a ring of bulk copies) whose epilogue also writes,
 // per step t,
 //     hs[t] = valid ? h_t : 0          (the carried h freezes instead)
 //     cs[t] = the carried c after the length mask
@@ -20,12 +22,14 @@
 // round() is to W_h's dtype. dW_h = h_prev^T dz and dx_proj = dz are formed
 // outside, in the wrapper's autograd function.
 //
-// What bounds them on this card: like K1, every step reads all of W_h
-// (64 MiB in f32 at H = 2048), far more than shared memory holds, so a step
-// costs at least H*4H*itemsize / 3.35 TB/s (about 20 us in f32). K3 also
-// writes 4H bf16 + 2H f32 per row per step; K4 reads zs, cs, cs_prev and
-// dout and writes dz (f32), per row per step. The arithmetic, 2*B*H*4H per
-// step, is below the byte time at training batch sizes up to ~64 in f32.
+// What bounds them on this card: like K1, every step needs all of W_h
+// (64 MiB in f32 at H = 2048), more than all the blocks' shared memory
+// holds. K3 keeps what fits on chip and streams the rest each step; K4
+// still reads all of W_h every step, at least H*4H*itemsize / 3.35 TB/s
+// (about 20 us in f32). K3 also writes 4H bf16 + 2H f32 per row per step;
+// K4 reads zs, cs, cs_prev and dout and writes dz (f32), per row per step.
+// At the training batch (B = 16) K3's 2*B*H*4H multiply-adds per step in
+// f32 outside the tensor cores take about as long as its streamed bytes.
 //
 // K4's design: dh_prev[b, j] = sum_k dz[b, k] W_h[j, k] reads row j of W_h,
 // which is contiguous, so no transposed copy is needed. A block owns 16
@@ -38,7 +42,8 @@
 // the four gate columns of those units. So there is one launch per step
 // plus one prologue launch for the gate grads of step T-1.
 //
-// Not done yet: W_h resident across steps, wgmma, one launch for all T.
+// Not done yet: K4 with W_h^T rows resident across steps in one launch for
+// all T, as K3 has them; tensor cores for the bf16 products.
 
 #include "lstm_step.cuh"
 
@@ -47,37 +52,6 @@ namespace {
 using lstm::as_weight_type;
 using lstm::sigmoid;
 using lstm::to_f32;
-
-template <typename WT, typename XT>
-__global__ void __launch_bounds__(lstm::THREADS)
-lstm_train_fwd_step(const XT* __restrict__ x_proj_t, const WT* __restrict__ w_h,
-                    const float* __restrict__ h_prev, float* __restrict__ h_next,
-                    float* __restrict__ c, const int32_t* __restrict__ seq,
-                    float* __restrict__ hs_t, float* __restrict__ cs_t,
-                    __nv_bfloat16* __restrict__ zs_t, int t, int B, int H) {
-  lstm::step<WT, XT, true>(x_proj_t, w_h, h_prev, h_next, c, seq, hs_t, cs_t,
-                           zs_t, t, B, H);
-}
-
-template <typename WT, typename XT>
-int run_fwd(const void* x_proj, const void* w_h, float* c, float* h,
-            const int32_t* seq, float* hs, float* cs, __nv_bfloat16* zs,
-            int T, int B, int H, void* stream) {
-  const dim3 grid((H + lstm::JT - 1) / lstm::JT, (B + lstm::BT - 1) / lstm::BT);
-  const size_t bh = (size_t)B * H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int t = 0; t < T; ++t) {
-    // h holds two [B, H] buffers: step t reads h[t % 2], writes the other
-    lstm_train_fwd_step<WT, XT><<<grid, lstm::THREADS, 0, s>>>(
-        static_cast<const XT*>(x_proj) + (size_t)t * 4 * bh,
-        static_cast<const WT*>(w_h), h + (t % 2) * bh, h + ((t + 1) % 2) * bh,
-        c, seq, hs + (size_t)t * bh, cs + (size_t)t * bh,
-        zs + (size_t)t * 4 * bh, t, B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 constexpr int UPW = 2;                 // hidden units per warp
 constexpr int BW = 8;                  // warps per block
@@ -236,23 +210,28 @@ int run_bwd(const __nv_bfloat16* zs, const float* cs, const float* cs_prev,
 
 extern "C" {
 
-// K3. x_proj [T, B, 4H] and w_h [H, 4H] in f32; c [B, H] in/out (c0 in,
-// c_T out); h [2, B, H] with h0 in h[0] (h_T ends in h[T % 2]); seq [B];
-// hs, cs [T, B, H] f32; zs [T, B, 4H] bf16.
-int lstm_train_fwd_f32(const void* x_proj, const void* w_h, float* c, float* h,
-                       const int32_t* seq, float* hs, float* cs, void* zs,
-                       int T, int B, int H, void* stream) {
-  return run_fwd<float, float>(x_proj, w_h, c, h, seq, hs, cs,
-                               static_cast<__nv_bfloat16*>(zs), T, B, H, stream);
+// K3 in f32: see lstm::run_recurrence for the arguments (hs is its `out`).
+int lstm_train_fwd_f32(const void* x_proj, const void* w_packed,
+                       const float* c0, const float* h0, float* c, float* h,
+                       void* hm, const int32_t* seq, float* hs, float* cs,
+                       void* zs, unsigned int* counter, int T, int B, int H,
+                       int bt, int blocks, int tiles_per_block,
+                       int resident_chunks, int smem, void* stream) {
+  return lstm::run_recurrence<float, true>(
+      x_proj, w_packed, c0, h0, c, h, hm, seq, hs, cs, zs, counter, T, B, H, bt,
+      blocks, tiles_per_block, resident_chunks, smem, stream);
 }
 
-// K3 with x_proj and w_h in bf16; gates, state and stashes as above.
-int lstm_train_fwd_bf16(const void* x_proj, const void* w_h, float* c, float* h,
-                        const int32_t* seq, float* hs, float* cs, void* zs,
-                        int T, int B, int H, void* stream) {
-  return run_fwd<__nv_bfloat16, __nv_bfloat16>(
-      x_proj, w_h, c, h, seq, hs, cs, static_cast<__nv_bfloat16*>(zs), T, B, H,
-      stream);
+// K3 with x_proj and W_h in bf16; gates, state and stashes as above.
+int lstm_train_fwd_bf16(const void* x_proj, const void* w_packed,
+                        const float* c0, const float* h0, float* c, float* h,
+                        void* hm, const int32_t* seq, float* hs, float* cs,
+                        void* zs, unsigned int* counter, int T, int B, int H,
+                        int bt, int blocks, int tiles_per_block,
+                        int resident_chunks, int smem, void* stream) {
+  return lstm::run_recurrence<__nv_bfloat16, true>(
+      x_proj, w_packed, c0, h0, c, h, hm, seq, hs, cs, zs, counter, T, B, H, bt,
+      blocks, tiles_per_block, resident_chunks, smem, stream);
 }
 
 // K4. zs [T, B, 4H] bf16; cs, cs_prev, dout [T, B, H] f32; w_h [H, 4H] f32;

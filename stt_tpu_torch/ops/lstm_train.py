@@ -33,6 +33,7 @@ from stt_tpu_torch.models.lstm import (
     steps,
 )
 from stt_tpu_torch.ops._build import check_tensors, launch, load
+from stt_tpu_torch.ops.lstm_kernel import pack_w_h, run_persistent
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -41,8 +42,9 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 @functools.lru_cache(maxsize=None)
 def _library_function(kind: str, dtype: torch.dtype):
     fn = getattr(load("lstm_train"), f"lstm_train_{kind}_{_SUFFIX[dtype]}")
-    n_pointers = {"fwd": 8, "bwd": 9}[kind]
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    # fwd: twelve pointers, then T, B, H and the five ints of the launch plan
+    n_pointers, n_ints = {"fwd": (12, 8), "bwd": (9, 3)}[kind]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,7 +79,10 @@ def train_forward(x_proj, w_h, c0, h0, seq):
 
 
 def lstm_train_fwd(x_proj, w_h, c0, h0, seq):
-    """K3: `train_forward`'s function, in the kernel on CUDA tensors."""
+    """K3: `train_forward`'s function, in the kernel on CUDA tensors: one
+    persistent launch for all T steps (`csrc/lstm_step.cuh`). W_h is packed
+    into the kernel's layout per call, since training changes it every
+    step (one pass over W_h, small beside the recurrence)."""
     T, B, four_h = x_proj.shape
     H = four_h // 4
     if x_proj.dtype not in _DTYPES:
@@ -92,20 +97,15 @@ def lstm_train_fwd(x_proj, w_h, c0, h0, seq):
     if x_proj.device.type == "cpu":
         return train_forward(x_proj, w_h, c0, h0, seq)
     device = x_proj.device
-    c = c0.clone()
-    h = torch.empty((2, B, H), dtype=torch.float32, device=device)
-    h[0].copy_(h0)
     hs = torch.empty((T, B, H), dtype=torch.float32, device=device)
     cs = torch.empty((T, B, H), dtype=torch.float32, device=device)
     zs = torch.empty((T, B, four_h), dtype=torch.bfloat16, device=device)
-    if T:
-        lstm_train_fwd.launches += 1
-        _launch(
-            "fwd", x_proj.dtype, device,
-            x_proj.data_ptr(), w_h.data_ptr(), c.data_ptr(), h.data_ptr(),
-            seq.data_ptr(), hs.data_ptr(), cs.data_ptr(), zs.data_ptr(), T, B, H,
-        )
-    return hs, cs, zs, c, h[T % 2]
+    if T == 0 or B == 0 or H == 0:
+        return hs, cs, zs, c0.clone(), h0.clone()
+    lstm_train_fwd.launches += 1
+    c, h = run_persistent(_library_function("fwd", x_proj.dtype), "lstm_train_fwd",
+                          x_proj, pack_w_h(w_h), c0, h0, seq, (hs, cs, zs))
+    return hs, cs, zs, c, h
 
 
 lstm_train_fwd.launches = 0

@@ -82,6 +82,89 @@ def test_lstm_kernel_matches_plain(device, dtype, B, H):
         assert torch.all(out[n:, b] == 0)
 
 
+# T = 1; a long T; B past one group of rows (17, 40); the full width with
+# the batch request's B; an H that is no multiple of the tile or the chunk;
+# more tiles than SMs (H = 2128: two tiles a block)
+EDGE_SHAPES = [(1, 2, 128), (600, 3, 100), (12, 17, 256), (9, 40, 128),
+               (6, 16, 2048), (5, 2, 2049), (5, 2, 2128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", EDGE_SHAPES)
+def test_lstm_forward_kernels_edge_shapes(device, dtype, T, B, H):
+    """K1 and K3 at the edges of the launch plan, against their plain
+    versions; K3's hs is K1's out, bit for bit (one kernel, two epilogues)."""
+    params, x, seq, c0, h0 = lstm_case(T + B + H, T=T, B=B, H=H, n_in=32)
+    params = {k: v.to(device) for k, v in params.items()}
+    x_proj, w_h = project_inputs(params, x.to(device), dtype)
+    args = (x_proj, w_h, c0.to(device), h0.to(device), seq.to(device))
+    out, (c, h) = lstm_recurrence(*args)
+    hs, cs, zs, c_T, h_T = lstm_train_fwd(*args)
+    want = train_forward(*args)
+    torch.cuda.synchronize()
+    # the bf16 roundings of h tip over more steps at T = 600
+    tol = TOL[dtype] if T <= 40 or dtype == torch.float32 else 5e-4
+    for name, g, w in zip(("hs", "cs", "c_T", "h_T"), (hs, cs, c_T, h_T),
+                          (want[0], want[1], want[3], want[4])):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=tol,
+                                   err_msg=name)
+    assert_zs_close(zs, want[2], tol)
+    assert torch.equal(out, hs) and torch.equal(c, c_T) and torch.equal(h, h_T)
+    for b, n in enumerate(seq.tolist()):
+        assert torch.all(out[n:, b] == 0)
+
+
+def test_lstm_kernel_calls_in_a_row_are_bit_equal(device):
+    """Two calls queued on one stream without a synchronise between them,
+    and the same call again: the barrier's counter starts each call anew and
+    the sums are taken in a fixed order."""
+    params, x, seq, c0, h0 = lstm_case(3, T=33, B=5, H=256, n_in=32)
+    params = {k: v.to(device) for k, v in params.items()}
+    x_proj, w_h = project_inputs(params, x.to(device), torch.float32)
+    args = (x_proj, w_h, c0.to(device), h0.to(device), seq.to(device))
+    first = lstm_recurrence(*args)
+    second = lstm_recurrence(*args)
+    torch.cuda.synchronize()
+    third = lstm_recurrence(*args)
+    fwd = [lstm_train_fwd(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    for other in (second, third):
+        assert torch.equal(first[0], other[0])
+        assert torch.equal(first[1][0], other[1][0]) and torch.equal(first[1][1], other[1][1])
+    for a, b in zip(*fwd):
+        assert torch.equal(a, b)
+
+
+def test_serving_uses_the_new_packed_weights_after_a_weight_change(device):
+    """The model keeps W_h in K1's layout across requests and makes it anew
+    when the weights change, in place or by a load."""
+    config = ModelConfig(n_hidden=64, n_cell_dim=128, n_out=29)
+    card = DeepSpeech(config, device=device)
+    card.load_state_dict(DeepSpeech(config, generator=torch.Generator().manual_seed(0)).state_dict())
+    feats = torch.from_numpy((np.random.RandomState(1).randn(2, 30, 26) * 3).astype(np.float32))
+
+    def logits_both():
+        cpu = DeepSpeech(config)
+        cpu.load_state_dict(card.state_dict())
+        with torch.no_grad():
+            return card(feats.to(device))[0].cpu().numpy(), cpu(feats)[0].numpy()
+
+    got, want = logits_both()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    packed = card.packed_w_h()
+    assert card.packed_w_h() is packed  # kept, not made per request
+    with torch.no_grad():
+        card.param("lstm/kernel").mul_(-0.5)
+    got2, want2 = logits_both()
+    assert card.packed_w_h() is not packed
+    assert np.abs(want2 - want).max() > 1e-3
+    np.testing.assert_allclose(got2, want2, rtol=0, atol=1e-4)
+    other = DeepSpeech(config, generator=torch.Generator().manual_seed(5))
+    card.load_state_dict(other.state_dict())
+    got3, want3 = logits_both()
+    np.testing.assert_allclose(got3, want3, rtol=0, atol=1e-4)
+
+
 def test_lstm_kernel_zero_steps(device):
     params, x, seq, c0, h0 = lstm_case(0, T=3, B=2, H=64, n_in=16)
     x_proj, w_h = project_inputs({k: v.to(device) for k, v in params.items()},
