@@ -18,7 +18,10 @@
    - K3 and K4, the training forward with stashes and the reverse sweep,
      at H = 2048, B in {8, 32}, T in {50, 200} and at the training phase's
      shape (B = 16, T = 256), f32 and bf16, ragged lengths, non-zero
-     initial state and final-state gradients; the library time is cuDNN's
+     initial state and final-state gradients, with both launch plans and
+     their streaming floors; K4 twice on the same inputs must give the same
+     bits; K4 is also timed with the weight gradient's GEMM beside it, the
+     fair counterpart of cuDNN's backward; the library time is cuDNN's
      training forward and its backward.
    - K2, the int8 inference recurrence, at H = 2048, B in {1, 8, 16, 32}, T
      in {16, 200}, x_proj in f32 and bf16, ragged lengths, non-zero initial
@@ -29,7 +32,9 @@
      and flat emissions, one utterance shorter than T; the cutoff branches,
      an external class layout, chunks of 16 against one launch, and a state
      handed from the plain version to the kernel mid-stream, at beam 32 and
-     at the serving default of 500. Backpointers must be equal.
+     at the serving default of 500. Backpointers must be equal. Then where a
+     frame's time goes at beam 32 and 500 (a variant built with
+     K5_PHASE_CLOCKS: SM cycles by phase) and the most live keys a frame had.
 3. Serving phase: a full-width DeepSpeech (the 2048 geometry, 29 outputs)
    with random weights from a seeded generator, saved as an artifact and
    opened with `Model(dir)` on the card; answers `stt` on three utterances,
@@ -52,7 +57,8 @@
    checkpoints must exist, and the trained weights, exported as an
    artifact, must answer `Model(dir).stt`. Then one full-width step on the
    card against the same step on the CPU (B = 2, dropout 0), the train
-   step's time at B = 16, and where one profiled step's device time goes.
+   step's time at B = 16, and where one profiled step's device time goes
+   (it must show one K3 and one K4 kernel on the card).
 5. Prints one JSON line listing every kernel, the card's name and power
    limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -329,9 +335,9 @@ def assert_zs_close(got: torch.Tensor, want: torch.Tensor, tol: float, what: str
 def train_kernel_phase(device, seed: int) -> list:
     """K3 and K4 against their plain versions, timed beside their bound,
     the plain versions and cuDNN's training forward and backward."""
-    from stt_tpu_torch.ops.lstm_kernel import plan_for
+    from stt_tpu_torch.ops.lstm_kernel import pack_w_h, plan_for
     from stt_tpu_torch.ops.lstm_train import (
-        lstm_train_bwd, lstm_train_fwd, train_backward, train_forward,
+        lstm_train_bwd, lstm_train_fwd, train_backward, train_forward, weight_grad,
     )
 
     H = 2048
@@ -370,16 +376,23 @@ def train_kernel_phase(device, seed: int) -> list:
             bwd_args = (zs, cs, cs_prev, dout, w_h, seq, dc_T, dh_T)
             got_b = lstm_train_bwd(*bwd_args)
             want_b = train_backward(*bwd_args)
+            again = lstm_train_bwd(*bwd_args, packed=pack_w_h(w_h))  # the forward's copy
             torch.cuda.synchronize()
             bwd_err = max((g - w).abs().max().item() for g, w in zip(got_b, want_b))
             if not bwd_err <= tol:
                 raise AssertionError(f"K4 {name}: max abs diff {bwd_err} > {tol}")
+            if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+                raise AssertionError(f"K4 {name}: two calls on the same inputs differ")
 
             reps = 3 if T >= 200 else 10
             rec = {"dtype": str(dtype).replace("torch.", ""), "B": B, "T": T, "H": H,
                    "tol": tol, "valid_steps": int(seq.sum()), "fwd_kernel": "persistent",
                    "fwd_plan": plan_for(B, H, dtype, device).describe(),
-                   "fwd_floors": streaming_floors(plan_for(B, H, dtype, device), T, H, dtype, device)}
+                   "fwd_floors": streaming_floors(plan_for(B, H, dtype, device), T, H, dtype, device),
+                   "bwd_kernel": "persistent",
+                   "bwd_plan": plan_for(B, H, dtype, device, backward=True).describe(),
+                   "bwd_floors": streaming_floors(plan_for(B, H, dtype, device, backward=True),
+                                                  T, H, dtype, device)}
             for kind, err, fn, plain, args in (
                 ("fwd", fwd_err, lstm_train_fwd, train_forward, fwd_args),
                 ("bwd", bwd_err, lstm_train_bwd, train_backward, bwd_args),
@@ -393,11 +406,23 @@ def train_kernel_phase(device, seed: int) -> list:
                     "bound_ms": bound, "bound_by": bound_by, "w_h_per_step_bound_ms": w_step_ms,
                     "library_ms": None, "library_rel_err": None, "vs_library": None,
                 }
+            # K4 with the weight gradient the autograd function forms beside
+            # it: the counterpart of cuDNN's backward, which forms it too
+            packed, hs = pack_w_h(w_h), got[0]
+
+            def k4_and_dw():
+                dz = lstm_train_bwd(*bwd_args, packed=packed)[0]
+                return weight_grad(h0, hs, dz, w_h.dtype)
+
+            rec["bwd"]["with_dw_ms"] = cuda_ms(k4_and_dw, reps)
+            rec["bwd"]["with_dw_vs_library"] = None
             if lstm is not None:
                 cudnn_times(rec, lstm, x_proj, w_h, c0, h0, dout, dc_T, dh_T, reps)
                 for kind in ("fwd", "bwd"):
                     if rec[kind]["library_ms"]:
                         rec[kind]["vs_library"] = rec[kind]["ms"] / rec[kind]["library_ms"]
+                if rec["bwd"]["library_ms"]:
+                    rec["bwd"]["with_dw_vs_library"] = rec["bwd"]["with_dw_ms"] / rec["bwd"]["library_ms"]
             print("k3k4", json.dumps(rec), flush=True)
             records.append(rec)
         del lstm
@@ -627,13 +652,17 @@ def k5_phase(device, seed: int) -> list:
                     reps = 20 if T <= 16 else 3
                     ms = cuda_ms(lambda: beam_kernel.beam_scan(probs, lens, W, *params), reps)
                     plain_ms = cuda_ms(lambda: plain(probs, lens, W, *params), 1)
+                    # the kernel alone: at T = 16 the call's host work can outlast it
+                    device_ms = kernel_device_ms(
+                        lambda: beam_kernel.beam_scan(probs, lens, W, *params), "beam_scan_kernel", reps)
                     state_bytes = (2 + 5) * B * beam_kernel.state_slots(W) * 4 + B * 4
                     bp_bytes = B * T * W * (2 if W <= beam_kernel.WSLOTS else 4)
                     moved = B * T * C * 4 + B * 4 + 2 * beam_kernel.LANES * 4 + 2 * state_bytes + bp_bytes
                     bound, bound_by = bound_ms(moved, 0, torch.float32)
                     rec = {"W": W, "C": C, "B": B, "T": T, "emissions": "peaky" if peaky else "flat",
                            "max_abs_err": err, "tol": K5_SCORE_TOL, "backpointers": "equal",
-                           "ms": ms, "us_per_frame": ms / T * 1e3, "plain_ms": plain_ms,
+                           "ms": ms, "us_per_frame": ms / T * 1e3, "device_ms": device_ms,
+                           "device_us_per_frame": device_ms / T * 1e3, "plain_ms": plain_ms,
                            "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
                     print("k5", json.dumps(rec), flush=True)
                     records.append(rec)
@@ -677,6 +706,115 @@ def k5_phase(device, seed: int) -> list:
     return records
 
 
+def kernel_device_ms(fn, name: str, reps: int) -> float:
+    """Device milliseconds per call of the kernels named `name` (a
+    substring) in fn(), from torch.profiler: the kernel alone, without the
+    host's work around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_events(prof) if name in e.key) / 1e3 / reps
+
+
+def k5_against(device, seed: int, other_source: str) -> list:
+    """K5 against another version of its source (`beam_scan.cu` of another
+    commit, with the same entry point), built beside it and timed in turns
+    (other, this, this, other) on the same inputs, with equal backpointers
+    required: a comparison that the spread between runs on different
+    machines cannot blur."""
+    import ctypes
+
+    from stt_tpu_torch.ops import _build, beam_kernel
+
+    lib = _build.BUILD_DIR / "libbeam_scan_other.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), other_source],
+                   check=True, capture_output=True)
+    other = ctypes.CDLL(str(lib)).beam_scan
+    this = beam_kernel._library_function()
+    other.argtypes, other.restype = this.argtypes, this.restype
+    kept = beam_kernel._library_function
+    out = []
+    try:
+        for W, C in ((8, 8), (32, 29), (128, 29), (128, 127), (500, 29)):
+            for B, T in ((1, 16), (1, 200), (16, 200)):
+                for peaky in (True, False):
+                    probs, lens = beam_inputs(B, T, C, peaky, seed + W + C + B + T, device)
+                    run = lambda: beam_kernel.beam_scan(probs, lens, W)
+                    times, results = {"other": [], "this": []}, {}
+                    for turn in ("other", "this", "this", "other"):
+                        fn = other if turn == "other" else this
+                        beam_kernel._library_function = lambda fn=fn: fn
+                        results[turn] = run()[2]
+                        times[turn].append(kernel_device_ms(run, "beam_scan_kernel", 10 if T <= 16 else 3))
+                    if not torch.equal(results["other"], results["this"]):
+                        raise AssertionError(f"K5 W={W} C={C}: the other source's backpointers differ")
+                    rec = {"W": W, "C": C, "B": B, "T": T, "emissions": "peaky" if peaky else "flat",
+                           "other_device_ms": times["other"], "this_device_ms": times["this"],
+                           "this_vs_other": sum(times["this"]) / sum(times["other"])}
+                    print("k5_against", json.dumps(rec), flush=True)
+                    out.append(rec)
+    finally:
+        beam_kernel._library_function = kept
+    return out
+
+
+K5_PHASES = ("cutoff", "parent_lookup", "updates", "pool", "selection", "winners")
+
+
+def k5_split(device, seed: int, records: list) -> list:
+    """Where a frame of K5 goes, at the stream's chunk (B = 1, T = 16, C =
+    29) for beam 32 and 500, flat and peaky emissions: the variant built
+    with K5_PHASE_CLOCKS (the same kernel with a barrier and an SM clock
+    stamp after each phase, block 0 only) on k5_phase's inputs, SM cycles
+    per frame by phase, their shares, and the most live keys a frame had.
+    The frame's time is k5_phase's, from the uninstrumented kernel."""
+    import ctypes
+
+    from stt_tpu_torch.ops import _build, beam_kernel
+
+    read = _build.load("beam_scan", "K5_PHASE_CLOCKS").beam_scan_phase_clocks
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    clocks = (ctypes.c_ulonglong * 8)()
+    kept = beam_kernel._library_function
+    instrumented = kept("K5_PHASE_CLOCKS")
+    split = []
+    beam_kernel._library_function = lambda: instrumented
+    try:
+        for W, C in ((BEAM_WIDTH, 29), (500, 29)):
+            for peaky in (True, False):
+                emissions = "peaky" if peaky else "flat"
+                probs, lens = beam_inputs(1, 16, C, peaky, seed + W + C + 1 + 16, device)
+                beam_kernel.beam_scan(probs, lens, W)
+                torch.cuda.synchronize()
+                if read(clocks) != 0:  # (sets them to zero)
+                    raise RuntimeError("reading K5's phase clocks failed")
+                for _ in range(10):
+                    beam_kernel.beam_scan(probs, lens, W)
+                torch.cuda.synchronize()
+                if read(clocks) != 0:
+                    raise RuntimeError("reading K5's phase clocks failed")
+                per_frame = [clocks[i] / clocks[7] for i in range(len(K5_PHASES))]
+                row = next(r for r in records if (r["W"], r["C"], r["B"], r["T"], r["emissions"])
+                           == (W, C, 1, 16, emissions))
+                rec = {"W": W, "C": C, "B": 1, "T": 16, "emissions": emissions,
+                       "us_per_frame": row["us_per_frame"], "pool_keys": W * (C + 1),
+                       "most_live_keys": int(clocks[6]),
+                       "cycles_per_frame": dict(zip(K5_PHASES, per_frame)),
+                       "share": {k: v / sum(per_frame) for k, v in zip(K5_PHASES, per_frame)}}
+                print("k5_split", json.dumps(rec), flush=True)
+                split.append(rec)
+    finally:
+        beam_kernel._library_function = kept
+    return split
+
+
 def utterance(seconds: float, rate: int, rng: np.random.RandomState) -> np.ndarray:
     """Seeded speech-like audio: a few gliding harmonics under noise."""
     n = int(seconds * rate)
@@ -701,6 +839,7 @@ def device_events(prof) -> list:
 
 
 RECURRENCE_KERNEL = "recurrence_kernel"  # K1's and K3's persistent kernel, by name
+BWD_KERNEL = "bwd_kernel"  # K4's persistent kernel, by name
 
 
 def profiled(name: str, audio_s: float, fn, kernel_names: dict) -> tuple:
@@ -1108,13 +1247,16 @@ def step_profile(state, batch, seed: int) -> dict:
     k3_events = sum(e.count for e in events if RECURRENCE_KERNEL in e.key)
     if busy and k3_events != 1:
         raise AssertionError(f"one train step showed {k3_events} K3 kernels on the card, not 1")
-    k4 = device_ms(lambda k: "lstm_train_bwd" in k)
+    k4 = device_ms(lambda k: BWD_KERNEL in k)
+    k4_events = sum(e.count for e in events if BWD_KERNEL in e.key)
+    if busy and k4_events != 1:
+        raise AssertionError(f"one train step showed {k4_events} K4 kernels on the card, not 1")
     gemm = device_ms(lambda k: any(s in k.lower() for s in ("gemm", "cutlass", "sm90_xmma")))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     rec = {
         **phases, "profiled_wall_ms": wall_ms, "device_busy_ms": busy or None,
         "k3_device_ms": k3 or None, "k3_device_events": k3_events,
-        "k4_device_ms": k4 or None, "gemm_device_ms": gemm or None,
+        "k4_device_ms": k4 or None, "k4_device_events": k4_events, "gemm_device_ms": gemm or None,
         "other_device_ms": (busy - k3 - k4 - gemm) if busy else None,
         "device_idle_share": (1 - busy / wall_ms) if busy else None,
         "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top],
@@ -1225,6 +1367,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", help="write the full record here as JSON")
+    parser.add_argument("--k5-against", metavar="BEAM_SCAN_CU",
+                        help="with --phases k5: also time K5 in turns against this version of "
+                             "its source")
     parser.add_argument("--phases", default="",
                         help="comma-separated kernel phases (k1, k2, k3k4, k5) to run alone, "
                              "for work on a kernel: prints their records and no result line")
@@ -1250,7 +1395,11 @@ def main() -> int:
     if args.phases:
         alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase}
         for name in args.phases.split(","):
-            alone[name](device, args.seed)
+            records = alone[name](device, args.seed)
+            if name == "k5":
+                k5_split(device, args.seed, records)
+                if args.k5_against:
+                    k5_against(device, args.seed, args.k5_against)
         print(f"gpu: {card}")
         print("chip_smoke: ran only", args.phases, "- no result line")
         return 0
@@ -1258,6 +1407,7 @@ def main() -> int:
     k2 = k2_phase(device, args.seed)
     k3k4 = train_kernel_phase(device, args.seed)
     k5 = k5_phase(device, args.seed)
+    k5_phases = k5_split(device, args.seed, k5)
     work_dir = os.path.join(ROOT, "build", "chip_smoke")
     serving = serving_phase(device, args.seed, os.path.join(work_dir, "model"))
     training = training_phase(device, args.seed, os.path.join(work_dir, "train"))
@@ -1321,7 +1471,8 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4, "k5": k5,
+            json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4,
+                       "k5": k5, "k5_phases": k5_phases,
                        "serving": serving, "training": training, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -33,8 +33,10 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+def library_path(name: str, define: str = "") -> Path:
+    """Where `csrc/<name>.cu` is built to; a variant built with the macro
+    `define` set has a library of its own."""
+    return BUILD_DIR / f"lib{name}{'.' + define.lower() if define else ''}.so"
 
 
 def _nvcc() -> str:
@@ -48,27 +50,28 @@ def _nvcc() -> str:
     return path
 
 
-def _stale(name: str) -> bool:
+def _stale(name: str, define: str = "") -> bool:
     """True when the library is missing or older than its source or any
     header in csrc/ (the sources share lstm_step.cuh)."""
-    lib = library_path(name)
+    lib = library_path(name, define)
     inputs = [sources()[name], *CSRC.glob("*.cuh")]
     return not lib.exists() or lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
-def build(names: Iterable[str] = ()) -> Dict[str, str]:
+def build(names: Iterable[str] = (), define: str = "") -> Dict[str, str]:
     """Compile the named sources (all when empty) that are out of date, one
-    nvcc process per source, all started together. Returns each built
-    source's ptxas report."""
-    names = [n for n in (list(names) or list(sources())) if _stale(n)]
+    nvcc process per source, all started together, with the macro `define`
+    set if one is given. Returns each built source's ptxas report."""
+    names = [n for n in (list(names) or list(sources())) if _stale(n, define)]
     if not names:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:
-        tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
+        tmp = Path(f"{library_path(name, define)}.{os.getpid()}.tmp")
+        flags = [*NVCC_FLAGS, *([f"-D{define}"] if define else [])]
+        cmd = [nvcc, *flags, "-o", str(tmp), str(sources()[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -78,8 +81,9 @@ def build(names: Iterable[str] = ()) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{report}")
             continue
-        os.replace(tmp, library_path(name))  # atomic when processes build at once
-        (BUILD_DIR / f"{name}.ptxas.txt").write_text(report)
+        os.replace(tmp, library_path(name, define))  # atomic when processes build at once
+        if not define:
+            (BUILD_DIR / f"{name}.ptxas.txt").write_text(report)
         reports[name] = report
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -87,10 +91,11 @@ def build(names: Iterable[str] = ()) -> Dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The built library for `csrc/<name>.cu`, building it if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+def load(name: str, define: str = "") -> ctypes.CDLL:
+    """The built library for `csrc/<name>.cu` (with the macro `define` set,
+    if given), building it if needed."""
+    build([name], define)
+    return ctypes.CDLL(str(library_path(name, define)))
 
 
 def check_tensors(expected: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]], device) -> None:

@@ -125,8 +125,8 @@ def unpack_bp(packed) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _library_function():
-    fn = load("beam_scan").beam_scan
+def _library_function(define: str = ""):
+    fn = load("beam_scan", define).beam_scan
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

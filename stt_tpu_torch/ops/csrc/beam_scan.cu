@@ -13,17 +13,29 @@
 //
 // Per frame: log of the class probabilities and the emission cutoff (rank
 // by counting, ties to the lower class; cumulative mass summed in rank
-// order); per slot the parent lookup by hash (a scan of the W slots), the
+// order); per slot the parent lookup by hash (a table in shared memory of
+// the live slots' hash pairs, each with its first slot and its count: what
+// a scan of the W slots finds, at one probe or two instead of W), the
 // blank / repeat / merge-extend updates and the timestep-claim decision;
 // then the candidate pool, W existing prefixes and W x C children, as
 // 64-bit keys (order-preserving float bits above the complemented flat
 // index, so that descending keys are value descending then flat index
-// ascending, the order of a stable descending sort), children that already
-// sit in the beam struck out by a scatter; the top W by a bitonic network:
-// every aligned group of Wp = next_pow2(W) keys sorted, then pairs of
-// groups merged keeping the better half until one group is left; and the
-// new state and the packed backpointers (src << 8) | (char + 1) read off
-// the winners.
+// ascending, the order of a stable descending sort; keys are unique), and
+// the top W of it; and the new state and the packed backpointers
+// (src << 8) | (char + 1) read off the winners.
+//
+// The top W: children that already sit in the beam are struck out (a bit
+// each), and only the live keys (finite values) are written, compacted by
+// warp ballots: a -inf winner becomes a dead slot whose fields do not
+// depend on which -inf key won. When no more than W are live they are all
+// winners; else a radix select, most significant byte first from the
+// highest byte in which the keys differ, finds the W-th largest key with
+// one 256-bin histogram per byte; the W keys at or above it are gathered.
+// The winners are then sorted descending by a bitonic network whose stages
+// of pairs less than 32 apart run inside a warp by shuffles: at W = 512,
+// 10 block-wide barriers. (The selection this replaces sorted all of a
+// padded pool of up to 16,384 keys by groups of W and merged them: about
+// 95 barriers a frame at W = 500.)
 //
 // Capacity: the TPU kernel takes beams up to 128 slots; this one takes up
 // to 512 as long as the pool W x (C + 1) fits 16,384 keys (128 KB of
@@ -42,14 +54,11 @@
 // utterance costs as long as B <= 132.
 //
 // What the design does about it: no device memory traffic inside a frame
-// but the C probabilities and the W backpointers; the selection sorts only
-// what top-W needs (groups of Wp, then halving merges) in place of the
-// whole pool; frames past the utterance's length or before the first
-// non-blank frame cost one store per slot.
+// but the C probabilities and the W backpointers; the selection ranks only
+// the live keys and sorts only the W winners; frames past the utterance's
+// length or before the first non-blank frame cost one store per slot.
 //
-// Not done yet: warp-level sorting of small groups without barriers,
-// skipping pool entries known to be -inf, several utterances per block at
-// small W.
+// Not done yet: several utterances per block at small W.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -60,13 +69,36 @@ namespace {
 constexpr int LN = 128;  // class lanes of the masks
 constexpr int MAX_SLOTS = 512;   // beam slots
 constexpr int MAX_POOL = 16384;  // keys of the candidate pool
-constexpr int SLOT_ARRAYS = 21;  // per-slot arrays of 4-byte values
+constexpr int SLOT_ARRAYS = 20;  // per-slot arrays of 4-byte values
+constexpr int MAX_SORT = 512;    // keys the final sort takes: the beam, padded
+constexpr int TABLE = 1024;      // open-addressing places of the parent table (2 x MAX_SLOTS)
 constexpr float LOG_FLOOR = 1.1754944e-38f;
 constexpr uint32_t H1 = 1000003u;
 constexpr uint32_t H2 = 69069u;
 #define NEG_INF (-CUDART_INF_F)
 
 typedef unsigned long long u64;
+
+#ifdef K5_PHASE_CLOCKS
+// A variant for measurement only (chip_smoke.py builds it beside the
+// kernel): the SM clock cycles of block 0's frames summed by phase [0, 6),
+// each phase ended by a barrier (the parent lookup gets a barrier of its
+// own); [6] the most live keys a frame had, [7] the frames counted.
+__device__ u64 k5_phase_clocks[8];
+#define PHASE(i)                                                   \
+  do {                                                             \
+    __syncthreads();                                               \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                     \
+      const u64 now = clock64();                                   \
+      k5_phase_clocks[i] += now - stamp;                           \
+      stamp = now;                                                 \
+    }                                                              \
+  } while (0)
+#else
+#define PHASE(i) \
+  do {           \
+  } while (0)
+#endif
 
 // log(exp(a) + exp(b)), written as the plain version writes it
 __device__ __forceinline__ float lse(float a, float b) {
@@ -87,56 +119,138 @@ __device__ __forceinline__ float key_value(u64 key) {
   return __uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
 }
 
-// Leaves the W largest keys of keys[0, P) in keys[0, W), descending. P and
-// Wp are powers of two, W <= Wp <= P. Ends after a barrier.
-__device__ void select_top(u64* keys, int P, int Wp, int log_wp) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  // every aligned group of Wp keys sorted: even groups descending, odd
-  // groups ascending
-  for (int k = 2; k <= Wp; k <<= 1) {
+// a slot's string hashes as one key of the parent table; (0, 0) is its
+// empty place, so live slots with those hashes are counted beside it
+__device__ __forceinline__ u64 hash_pair(int32_t a, int32_t b) {
+  return ((u64)(uint32_t)a << 32) | (u64)(uint32_t)b;
+}
+__device__ __forceinline__ unsigned table_place(u64 key) {
+  return (unsigned)(((key ^ (key >> 29)) * 0x9E3779B97F4A7C15ull) >> 54);  // 10 bits
+}
+
+__device__ __forceinline__ u64 umax64(u64 a, u64 b) { return a > b ? a : b; }
+__device__ __forceinline__ u64 umin64(u64 a, u64 b) { return a < b ? a : b; }
+
+// Sorts the L keys of buf[0][0, L) descending (L a power of two, at most
+// MAX_SORT and at most the block's threads) by a bitonic network in which
+// thread i holds key i: stages that pair keys less than 32 apart run inside
+// a warp by shuffles, the others meet in shared memory, one barrier each
+// (the two buffers take turns). Ends with the keys in buf[0][0, L) and a
+// barrier.
+__device__ void sort_desc(u64 (*buf)[MAX_SORT], int L) {
+  const int tid = threadIdx.x;
+  u64 x = tid < L ? buf[0][tid] : 0;
+  int turn = 1;
+  for (int k = 2; k <= L; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < P; i += nt) {
-        const int l = i ^ j;
-        if (l > i) {
-          const bool desc = (i & k) == 0;
-          const u64 x = keys[i], y = keys[l];
-          if (desc ? x < y : x > y) {
-            keys[i] = y;
-            keys[l] = x;
-          }
-        }
+      u64 y;
+      if (j >= 32) {
+        if (tid < L) buf[turn][tid] = x;
+        __syncthreads();
+        y = tid < L ? buf[turn][tid ^ j] : 0;
+        turn ^= 1;
+      } else {
+        y = __shfl_xor_sync(0xffffffffu, x, j);
       }
-      __syncthreads();
+      const bool desc = (tid & k) == 0, lower = (tid & j) == 0;
+      x = lower == desc ? umax64(x, y) : umin64(x, y);
     }
   }
-  // a descending and an ascending group: the element-wise larger keys are
-  // the best Wp of both, as a bitonic sequence; merge it, descending where
-  // the surviving group's number is even, and halve the groups again
-  for (int s = Wp; s < P; s <<= 1) {
-    const int count = (P / (2 * s)) * Wp;
-    for (int e = tid; e < count; e += nt) {
-      const int a = (e >> log_wp) * 2 * s + (e & (Wp - 1));
-      const u64 y = keys[a + s];
-      if (y > keys[a]) keys[a] = y;
+  __syncthreads();  // the last stage's reads are done
+  if (tid < L) buf[0][tid] = x;
+  __syncthreads();
+}
+
+// The position of this lane's item among the warp's items that are `on`,
+// and (in *count) how many of the warp's items are on.
+__device__ __forceinline__ int warp_rank(bool on, int* count) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, on);
+  *count = __popc(ballot);
+  return __popc(ballot & ((1u << (threadIdx.x & 31)) - 1u));
+}
+
+// Called by every thread: of the per-warp values vals[0, nwarps), the sum
+// of those before warp w (returned) and of all (*total), by one warp scan
+// of values every thread reads.
+__device__ __forceinline__ int warps_before(const int* vals, int nwarps, int w, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int mine = lane < nwarps ? vals[lane] : 0;
+  int incl = mine;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  *total = __shfl_sync(0xffffffffu, incl, 31);
+  return __shfl_sync(0xffffffffu, incl - mine, w);
+}
+
+// Radix select, most significant byte first: among the n unique keys of
+// keys[0, n) (n > W), the W largest are those whose bits above `*shift`
+// are at least those of the returned prefix. Starts at the highest byte in
+// which the keys differ (from their OR-ed differences, `spread`, and one
+// key, `any`). Per byte: a 256-bin histogram of the keys that share the
+// prefix so far, counted with one shared atomic per run of equal digits in
+// a warp (__match_any_sync: at flat emissions most live keys share their
+// top bytes), then one warp walks the bins from the top to the bin that
+// holds the W-th key. Stops when every key of that bin is taken. hist[2][256]
+// must be zero at the start and is left zero after the next barrier.
+__device__ u64 radix_select(const u64* keys, int n, int W, u64 spread, u64 any,
+                            int (*hist)[256], int* shift_out, int* decision) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  int shift = ((63 - __clzll((long long)spread)) >> 3) << 3;
+  u64 prefix = shift == 56 ? 0 : (any >> (shift + 8)) << (shift + 8);
+  int need = W;
+  for (int pass = 0;; ++pass, shift -= 8) {
+    int* h = hist[pass & 1];
+    const int above = shift + 8;  // bits decided so far: those at and above `above`
+    for (int base = tid & ~31; base < n; base += nt) {
+      const int i = base + lane;
+      int digit = -1;
+      if (i < n) {
+        const u64 key = keys[i];
+        if (above == 64 || (key >> above) == (prefix >> above)) digit = (int)((key >> shift) & 255);
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, digit);
+      if (digit >= 0 && lane == __ffs(peers) - 1) atomicAdd(h + digit, __popc(peers));
     }
     __syncthreads();
-    for (int j = Wp >> 1; j > 0; j >>= 1) {
-      for (int e = tid; e < count; e += nt) {
-        const int m = e >> log_wp, o = e & (Wp - 1);
-        const int l = o ^ j;
-        if (l > o) {
-          const int a = m * 2 * s + o, c = m * 2 * s + l;
-          const bool desc = (m & 1) == 0;
-          const u64 x = keys[a], y = keys[c];
-          if (desc ? x < y : x > y) {
-            keys[a] = y;
-            keys[c] = x;
+    if (tid < 32) {
+      // lane l holds bins 255 - 8 l down to 248 - 8 l
+      int c[8], sum = 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        c[e] = h[255 - 8 * lane - e];
+        sum += c[e];
+      }
+      int incl = sum;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      int before = incl - sum;  // keys in the bins above this lane's
+      if (before < need && need <= incl) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (before < need && need <= before + c[e]) {
+            decision[0] = 255 - 8 * lane - e;
+            decision[1] = need - before;
+            decision[2] = c[e] == need - before;
           }
+          before += c[e];
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
+    prefix |= (u64)decision[0] << shift;
+    need = decision[1];
+    const bool done = decision[2] != 0;
+    // this histogram was read above; the next pass counts in the other one,
+    // and warp 0 writes the decision again only after that pass's barrier
+    for (int i = tid; i < 256; i += nt) h[i] = 0;
+    if (done || shift == 0) break;
   }
+  *shift_out = shift;
+  return prefix;
 }
 
 // mode: 0 = classes in static rank order, none cut; 1 = sorted by
@@ -155,10 +269,14 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
                  int32_t* __restrict__ out_started,
                  BP* __restrict__ bp,                    // [B, T, W]
                  int B, int T, int W, int S, int C, int blank,
-                 int cutoff_top_n, int mode, float cutoff_prob, int P, int Wp,
-                 int log_wp) {
-  extern __shared__ u64 keys[];  // [P], then SLOT_ARRAYS arrays of [S]
-  float* const slot_f = reinterpret_cast<float*>(keys + P);
+                 int cutoff_top_n, int mode, float cutoff_prob) {
+  // two sort buffers of MAX_SORT keys, the pool's live keys [W (C + 1)],
+  // then SLOT_ARRAYS arrays of [S]
+  extern __shared__ u64 dyn[];
+  u64 (*const top)[MAX_SORT] = reinterpret_cast<u64 (*)[MAX_SORT]>(dyn);
+  u64* const keys = dyn + 2 * MAX_SORT;
+  const int n_pool = W + W * C;
+  float* const slot_f = reinterpret_cast<float*>(keys + n_pool);
   float *const pb = slot_f, *const pnb = pb + S, *const score = pnb + S;
   float *const npb = score + S, *const npnb = npb + S, *const exist = npnb + S;
   float *const t_pb = exist + S, *const t_pnb = t_pb + S;
@@ -168,12 +286,22 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
   int32_t *const t_last = phb + S, *const t_ha = t_last + S;
   int32_t *const t_hb = t_ha + S, *const t_pha = t_hb + S;
   int32_t *const t_phb = t_pha + S, *const par_idx = t_phb + S;
-  int32_t *const par_hits = par_idx + S, *const rewrite = par_hits + S;
+  int32_t* const rewrite = par_idx + S;
   __shared__ float logp[LN], sprob[LN];
   __shared__ int32_t rank[LN], order[LN], included[LN];
   __shared__ int32_t started, cutlen;
+  __shared__ unsigned struck[MAX_POOL / 32];  // children already in the beam
+  __shared__ int hist[2][256];               // the radix select's
+  __shared__ int wcount[32], decision[3], n_sel;
+  __shared__ u64 wmin[32], wmax[32];
+  // the parent table: per distinct hash pair of the live slots, the first
+  // slot that has it and how many do
+  __shared__ u64 tab_key[TABLE];
+  __shared__ int tab_first[TABLE], tab_hits[TABLE];
+  __shared__ int zero_first, zero_hits;  // the live slots with hashes (0, 0)
 
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int b = blockIdx.x;
   const int len = lens[b];
   const size_t plane = (size_t)B * S;
@@ -189,9 +317,13 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
     phb[w] = in_i[4 * plane + at];
   }
   if (tid == 0) started = in_started[b];
+  for (int i = tid; i < 2 * 256; i += nt) hist[i >> 8][i & 255] = 0;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
+#ifdef K5_PHASE_CLOCKS
+    u64 stamp = clock64();
+#endif
     BP* bp_t = bp + ((size_t)b * T + t) * W;
     bool active = t < len;
     if (active) {
@@ -250,7 +382,58 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
         included[c] = (rank[c] < cutlen) && nign[c];
     }
     for (int w = tid; w < W; w += nt) score[w] = lse(pb[w], pnb[w]);
+    for (int i = tid; i < (n_pool + 31) / 32; i += nt) struck[i] = 0;
+    for (int i = tid; i < TABLE; i += nt) {
+      tab_key[i] = 0;
+      tab_first[i] = MAX_SLOTS;
+      tab_hits[i] = 0;
+    }
+    if (tid == 0) {
+      n_sel = zero_hits = 0;
+      zero_first = MAX_SLOTS;
+    }
     __syncthreads();
+    PHASE(0);  // class logs, cutoff, scores
+
+    // ---- the parent table: every live slot under its string hashes -------
+    for (int i = tid; i < W; i += nt) {
+      if (!(score[i] > NEG_INF)) continue;
+      const u64 key = hash_pair(ha[i], hb[i]);
+      int *first = &zero_first, *hits = &zero_hits;
+      if (key != 0) {
+        unsigned at = table_place(key);
+        for (u64 seen; (seen = atomicCAS(&tab_key[at], 0ull, key)) != 0 && seen != key;)
+          at = (at + 1) & (TABLE - 1);
+        first = tab_first + at;
+        hits = tab_hits + at;
+      }
+      atomicMin(first, i);
+      atomicAdd(hits, 1);
+    }
+    __syncthreads();
+
+    // the parent of slot j: the first live slot whose string hashes are
+    // j's parent-string hashes, and how many match (what a scan of the W
+    // slots in order finds)
+    auto parent_of = [&](int j, int& par, int& hits) {
+      par = hits = 0;
+      if (last[j] < 0) return;
+      const u64 key = hash_pair(pha[j], phb[j]);
+      const int *first = &zero_first, *count = &zero_hits;
+      if (key != 0) {
+        unsigned at = table_place(key);
+        while (tab_key[at] != key && tab_key[at] != 0) at = (at + 1) & (TABLE - 1);
+        if (tab_key[at] != key) return;
+        first = tab_first + at;
+        count = tab_hits + at;
+      }
+      hits = *count;
+      if (hits) par = *first;
+    };
+#ifdef K5_PHASE_CLOCKS
+    for (int j = tid; j < W; j += nt) parent_of(j, par_idx[j], rewrite[j]);
+    PHASE(1);
+#endif
 
     // ---- existing slots: parent by hash, blank / repeat / merge-extend,
     // and whether the extension rewrites the prefix's last timestep ------
@@ -260,16 +443,13 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
       const bool alive = sc > NEG_INF;
       const int l = last[j];
       const bool has_last = l >= 0;
-      int par = 0, hits = 0;
-      if (has_last) {
-        const int32_t a = pha[j], c2 = phb[j];
-        for (int i = 0; i < W; ++i) {
-          if (ha[i] == a && hb[i] == c2 && score[i] > NEG_INF) {
-            if (hits == 0) par = i;
-            ++hits;
-          }
-        }
-      }
+      int par, hits;
+#ifdef K5_PHASE_CLOCKS
+      par = par_idx[j];
+      hits = rewrite[j];
+#else
+      parent_of(j, par, hits);
+#endif
       const bool has_parent = hits > 0;
       const float lp = has_last ? logp[l] : 0.0f;
       const bool c_in = has_last && included[l] != 0;
@@ -289,54 +469,133 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
       npnb[j] = nb;
       exist[j] = lse(b_val, nb);
       par_idx[j] = par;
-      par_hits[j] = hits;
       rewrite[j] = (r_first ? rw_a : rw_b) && e_ok;
-    }
-    __syncthreads();
-
-    // ---- the pool: W existing prefixes, then W x C children -------------
-    const int n_pool = W + W * C;
-    for (int f = tid; f < P; f += nt) {
-      u64 key = 0;  // padding: below every real key
-      if (f < W) {
-        key = make_key(exist[f], f);
-      } else if (f < n_pool) {
-        const int w = (f - W) / C, c = (f - W) - w * C;
-        float v = NEG_INF;
-        if (score[w] > NEG_INF && included[c] && c != blank)
-          v = ((c == last[w]) ? pb[w] : score[w]) + logp[c];
-        key = make_key(v, f);
-      }
-      keys[f] = key;
-    }
-    __syncthreads();
-    // a child that already sits in the beam (slot j is prefix_par + last[j])
-    // is struck out: its mass went to slot j as the merge-extend
-    for (int j = tid; j < W; j += nt) {
-      const int hits = par_hits[j];
+      // the child prefix_par + last[j] already sits in the beam as slot j:
+      // its mass went to slot j as the merge-extend, so it is struck out of
+      // the pool (under a hash collision, that of every matching parent)
       if (hits == 1) {
-        const int f = W + par_idx[j] * C + last[j];
-        keys[f] = make_key(NEG_INF, f);
-      } else if (hits > 1) {  // hash collision: every matching parent
+        const int f = W + par * C + l;
+        atomicOr(&struck[f >> 5], 1u << (f & 31));
+      } else if (hits > 1) {
         for (int i = 0; i < W; ++i) {
           if (ha[i] == pha[j] && hb[i] == phb[j] && score[i] > NEG_INF) {
-            const int f = W + i * C + last[j];
-            keys[f] = make_key(NEG_INF, f);
+            const int f = W + i * C + l;
+            atomicOr(&struck[f >> 5], 1u << (f & 31));
           }
         }
       }
     }
     __syncthreads();
-    select_top(keys, P, Wp, log_wp);
+    PHASE(2);  // updates of the existing slots
+
+    // ---- the pool: the live keys of the W existing prefixes and the
+    // W x C children, compacted. A key is live when its value is finite: a
+    // -inf winner becomes a dead slot whose fields do not depend on which
+    // -inf key won, so only the finite keys need ranking. Warp w takes a
+    // run of seg flat indices; it counts its live keys, the warps' counts
+    // are scanned, and it writes them at its offset.
+    const int seg = (n_pool + nt - 1) / nt * 32;
+    const int f_begin = warp * seg, f_end = min(f_begin + seg, n_pool);
+    auto pool_key = [&](int f, u64* key) {
+      float v;
+      if (f < W) {
+        v = exist[f];
+      } else {
+        const int w = (f - W) / C, c = (f - W) - w * C;
+        v = NEG_INF;
+        if (score[w] > NEG_INF && included[c] && c != blank && !((struck[f >> 5] >> (f & 31)) & 1u))
+          v = ((c == last[w]) ? pb[w] : score[w]) + logp[c];
+      }
+      *key = make_key(v, f);
+      return v > NEG_INF;
+    };
+    {
+      int count = 0;
+      for (int f0 = f_begin; f0 < f_end; f0 += 32) {
+        u64 key;
+        const bool on = f0 + lane < f_end && pool_key(f0 + lane, &key);
+        count += __popc(__ballot_sync(0xffffffffu, on));
+      }
+      if (lane == 0) wcount[warp] = count;
+    }
+    __syncthreads();
+    int n_live;
+    {
+      int pos = warps_before(wcount, nwarps, warp, &n_live);
+      u64 lo = ~0ull, hi = 0;
+      for (int f0 = f_begin; f0 < f_end; f0 += 32) {
+        u64 key;
+        const bool on = f0 + lane < f_end && pool_key(f0 + lane, &key);
+        int count;
+        const int r = warp_rank(on, &count);
+        if (on) {
+          keys[pos + r] = key;
+          lo = umin64(lo, key);
+          hi = umax64(hi, key);
+        }
+        pos += count;
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = umin64(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = umax64(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+      if (lane == 0) {
+        wmin[warp] = lo;
+        wmax[warp] = hi;
+      }
+    }
+    __syncthreads();
+    PHASE(3);  // the pool's live keys, compacted
+#ifdef K5_PHASE_CLOCKS
+    if (blockIdx.x == 0 && tid == 0) {  // the most live keys a frame had, and the frames
+      if ((u64)n_live > k5_phase_clocks[6]) k5_phase_clocks[6] = n_live;
+      k5_phase_clocks[7] += 1;
+    }
+#endif
+
+    // ---- the top W: all live keys when they are no more than W, else the
+    // W at or above the W-th largest (radix select); then sorted ----------
+    const int n_top = min(n_live, W);
+    if (n_live > W) {
+      u64 lo = lane < nwarps ? wmin[lane] : ~0ull, hi = lane < nwarps ? wmax[lane] : 0;
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = umin64(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = umax64(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+      int shift;
+      const u64 prefix = radix_select(keys, n_live, W, hi ^ lo, hi, hist, &shift, decision);
+      for (int base = tid & ~31; base < n_live; base += nt) {
+        const int i = base + lane;
+        const bool on = i < n_live && (keys[i] >> shift) >= (prefix >> shift);
+        int count;
+        const int r = warp_rank(on, &count);
+        int at = 0;
+        if (lane == 0 && count) at = atomicAdd(&n_sel, count);
+        at = __shfl_sync(0xffffffffu, at, 0);
+        if (on) top[0][at + r] = keys[i];
+      }
+    } else {
+      for (int i = tid; i < n_live; i += nt) top[0][i] = keys[i];
+    }
+    const int L = n_top <= 1 ? 1 : 1 << (32 - __clz(n_top - 1));
+    for (int i = n_top + tid; i < L; i += nt) top[0][i] = 0;  // below every key
+    __syncthreads();
+    sort_desc(top, L);
+    PHASE(4);  // radix select, gather, sort
 
     // ---- the winners become the new slots --------------------------------
     for (int k = tid; k < W; k += nt) {
-      const u64 key = keys[k];
-      const float val = key_value(key);
-      const int flat = (int)(~(uint32_t)key);
       int s_last, s_ha, s_hb, s_pha, s_phb, src, ch;
       float s_pb, s_pnb;
-      if (flat < W) {
+      const u64 key = top[0][k];
+      const int flat = (int)(~(uint32_t)key);
+      if (k >= n_top) {  // a dead slot: hash (0, 0), points at itself
+        s_last = -1;
+        s_pb = s_pnb = NEG_INF;
+        s_ha = s_hb = s_pha = s_phb = 0;
+        src = k;
+        ch = -1;
+      } else if (flat < W) {
         const int j = flat;
         s_last = last[j];
         s_pb = npb[j];
@@ -351,7 +610,7 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
         const int i = (flat - W) / C, c = (flat - W) - i * C;
         s_last = c;
         s_pb = NEG_INF;
-        s_pnb = val;
+        s_pnb = key_value(key);
         // a child rolls its parent's hashes forward one character (the
         // products wrap in 32 bits)
         s_ha = (int32_t)((uint32_t)ha[i] * H1 + (uint32_t)(c + 1));
@@ -360,13 +619,6 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
         s_phb = hb[i];
         src = i;
         ch = c;
-      }
-      if (val == NEG_INF) {  // a dead slot: hash (0, 0), points at itself
-        s_last = -1;
-        s_pb = s_pnb = NEG_INF;
-        s_ha = s_hb = s_pha = s_phb = 0;
-        src = k;
-        ch = -1;
       }
       t_last[k] = s_last;
       t_pb[k] = s_pb;
@@ -388,6 +640,7 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
       phb[w] = t_phb[w];
     }
     __syncthreads();
+    PHASE(5);  // the winners become the new slots
   }
 
   for (int w = tid; w < S; w += nt) {
@@ -417,19 +670,17 @@ int launch_scan(const float* probs, const int32_t* lens, const int32_t* nign,
                 int32_t* out_i, int32_t* out_started, BP* bp, int B, int T,
                 int W, int S, int C, int blank, int cutoff_top_n, int mode,
                 float cutoff_prob, cudaStream_t stream) {
-  const int P = next_pow2(W + W * C);
-  const int Wp = next_pow2(W);
-  int log_wp = 0;
-  while ((1 << log_wp) < Wp) ++log_wp;
-  const int threads = P <= 512 ? 128 : P <= 2048 ? 256 : P <= 8192 ? 512 : 1024;
-  const size_t smem = (size_t)P * sizeof(u64) + (size_t)SLOT_ARRAYS * S * 4;
+  const int n_pool = W + W * C;
+  // at least one thread per key of the final sort
+  int threads = n_pool <= 512 ? 128 : n_pool <= 2048 ? 256 : n_pool <= 8192 ? 512 : 1024;
+  if (threads < next_pow2(W)) threads = next_pow2(W);
+  const size_t smem = (size_t)(2 * MAX_SORT + n_pool) * sizeof(u64) + (size_t)SLOT_ARRAYS * S * 4;
   cudaError_t err = cudaFuncSetAttribute(
       beam_scan_kernel<BP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   beam_scan_kernel<BP><<<B, threads, smem, stream>>>(
       probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
-      out_started, bp, B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob, P,
-      Wp, log_wp);
+      out_started, bp, B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,5 +712,15 @@ int beam_scan(const float* probs, const int32_t* lens, const int32_t* nign,
                      out_f, out_i, out_started, static_cast<int16_t*>(bp), B, T,
                      W, S, C, blank, cutoff_top_n, mode, cutoff_prob, on);
 }
+
+#ifdef K5_PHASE_CLOCKS
+// Copies the phase clocks to clocks[8] and sets them to zero.
+int beam_scan_phase_clocks(u64* clocks) {
+  cudaError_t err = cudaMemcpyFromSymbol(clocks, k5_phase_clocks, sizeof(k5_phase_clocks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const u64 zeros[8] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(k5_phase_clocks, zeros, sizeof(zeros)));
+}
+#endif
 
 }  // extern "C"

@@ -153,6 +153,10 @@ __device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar, unsi
                "r"(bytes)
                : "memory");
 }
+// the phase's one arrival, with no bytes to wait for
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
 // wait until the phase of this parity is complete: its arrival was made and
 // all its bytes have landed, and are visible. Traps like grid_barrier.
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
@@ -293,6 +297,12 @@ __device__ __forceinline__ void store_rounded(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ void ldmatrix_x4_trans(const void* smem_src, unsigned (&r)[4]) {
   const unsigned src = static_cast<unsigned>(__cvta_generic_to_shared(smem_src));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(src));
+}
+__device__ __forceinline__ void ldmatrix_x4(const void* smem_src, unsigned (&r)[4]) {
+  const unsigned src = static_cast<unsigned>(__cvta_generic_to_shared(smem_src));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(src));
 }
@@ -565,17 +575,22 @@ recurrence_kernel(const Args<WT> a) {
 // PTHREADS threads with `smem` bytes of dynamic shared memory, `bt` batch
 // rows per group (1, 8, 16 or 32). The launch is cooperative, so a grid
 // that cannot be resident at once is refused and the error returned.
-template <typename WT, bool STASH, int BT>
-int launch_rows(const Args<WT>& a, int blocks, int smem, cudaStream_t s) {
-  auto kernel = recurrence_kernel<WT, STASH, BT>;
+template <typename A>
+int launch_cooperative(void (*kernel)(const A), const A& a, int blocks, int smem,
+                       cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* params[] = {const_cast<Args<WT>*>(&a)};
+  void* params[] = {const_cast<A*>(&a)};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks),
                                     dim3(PTHREADS), params, (size_t)smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename WT, bool STASH, int BT>
+int launch_rows(const Args<WT>& a, int blocks, int smem, cudaStream_t s) {
+  return launch_cooperative(recurrence_kernel<WT, STASH, BT>, a, blocks, smem, s);
 }
 
 // The host side of K1 (STASH false: cs and zs unused) and K3: x_proj

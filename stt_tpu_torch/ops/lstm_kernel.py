@@ -141,6 +141,43 @@ def launch_plan(B: int, H: int, itemsize: int, sm_count: int,
                       fixed + resident * tiles_per_block * CHUNK_BYTES)
 
 
+THREADS = 32 * WARPS  # threads per block
+BWD_ROW_GROUPS = (1, 8, 16)  # batch rows whose dz a thread of K4 holds at once
+RED_SLICES = 8  # K4 sums the tiles' partials in at most this many slices
+
+
+def reduction_floats(tiles_per_block: int, rows: int) -> int:
+    """Floats of K4's reduction slices in shared memory (`red_floats`)."""
+    return max(THREADS * 4, tiles_per_block * UNITS_PER_TILE * rows)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_plan(B: int, H: int, itemsize: int, sm_count: int,
+                    smem_limit: int = SMEM_LIMIT) -> LaunchPlan:
+    """The launch of K4, the persistent reverse sweep (`csrc/lstm_train.cu`):
+    the forward's tiles and chunks; shared memory holds the ring, the
+    block's dz (rows x 64 f32 per tile), the reduction's slices and the
+    barriers, and the rest keeps resident chunks. It stages no h, so it keeps
+    more chunks than `launch_plan`. Rows are taken 16 at a time at most."""
+    if min(B, H, sm_count) < 1 or itemsize not in (2, 4):
+        raise ValueError(f"no launch plan for B={B} H={H} itemsize={itemsize} SMs={sm_count}")
+    rows = next((r for r in BWD_ROW_GROUPS if B <= r), BWD_ROW_GROUPS[-1])
+    groups = -(-B // rows)
+    tiles = -(-H // UNITS_PER_TILE)
+    tiles_per_block = -(-tiles // sm_count)
+    blocks = -(-tiles // tiles_per_block)
+    kc = chunk_rows(itemsize)
+    chunks = -(-H // kc)
+    padded_rows = groups * rows
+    fixed = (STAGES * CHUNK_BYTES + tiles_per_block * padded_rows * TILE_COLUMNS * 4
+             + reduction_floats(tiles_per_block, padded_rows) * 4 + BARRIER_BYTES)
+    if fixed > smem_limit:
+        raise ValueError(f"K4's ring and dz need {fixed} bytes of shared memory, over {smem_limit}")
+    resident = min(chunks, (smem_limit - fixed) // (CHUNK_BYTES * tiles_per_block))
+    return LaunchPlan(rows, groups, tiles, tiles_per_block, blocks, kc, chunks, resident,
+                      fixed + resident * tiles_per_block * CHUNK_BYTES)
+
+
 def pack_w_h(w_h: torch.Tensor) -> torch.Tensor:
     """W_h [H, 4H] (f32 or bf16, gate blocks i, g, f, o) -> the persistent
     kernel's layout [tiles, HP, 64]: tile i holds, for every k, the columns
@@ -183,11 +220,13 @@ def _swizzled_pieces(hp: int, device) -> torch.Tensor:
     return (k * 8 + (piece ^ (k & 7))).reshape(-1)
 
 
-def plan_for(B: int, H: int, dtype: torch.dtype, device) -> LaunchPlan:
-    """The launch plan on `device` (a CUDA device)."""
+def plan_for(B: int, H: int, dtype: torch.dtype, device, backward: bool = False) -> LaunchPlan:
+    """The launch plan on `device` (a CUDA device): the forward's, or with
+    `backward` K4's."""
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT)
-    return launch_plan(B, H, torch.finfo(dtype).bits // 8, props.multi_processor_count, limit)
+    plan = bwd_launch_plan if backward else launch_plan
+    return plan(B, H, torch.finfo(dtype).bits // 8, props.multi_processor_count, limit)
 
 
 def stage_h(h0: torch.Tensor, plan: LaunchPlan, dtype: torch.dtype) -> Tuple[torch.Tensor, int]:

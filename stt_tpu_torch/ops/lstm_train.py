@@ -33,7 +33,7 @@ from stt_tpu_torch.models.lstm import (
     steps,
 )
 from stt_tpu_torch.ops._build import check_tensors, launch, load
-from stt_tpu_torch.ops.lstm_kernel import pack_w_h, run_persistent
+from stt_tpu_torch.ops.lstm_kernel import TILE_COLUMNS, pack_w_h, plan_for, run_persistent
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -42,15 +42,12 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 @functools.lru_cache(maxsize=None)
 def _library_function(kind: str, dtype: torch.dtype):
     fn = getattr(load("lstm_train"), f"lstm_train_{kind}_{_SUFFIX[dtype]}")
-    # fwd: twelve pointers, then T, B, H and the five ints of the launch plan
-    n_pointers, n_ints = {"fwd": (12, 8), "bwd": (9, 3)}[kind]
+    # twelve pointers (fwd) or eleven (bwd), then T, B, H and the five ints
+    # of the launch plan
+    n_pointers, n_ints = {"fwd": (12, 8), "bwd": (11, 8)}[kind]
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _launch(kind: str, dtype: torch.dtype, device, *args) -> None:
-    launch(_library_function(kind, dtype), f"lstm_train_{kind}", device, *args)
 
 
 # --- K3: forward with stashes --------------------------------------------
@@ -78,11 +75,12 @@ def train_forward(x_proj, w_h, c0, h0, seq):
     )
 
 
-def lstm_train_fwd(x_proj, w_h, c0, h0, seq):
+def lstm_train_fwd(x_proj, w_h, c0, h0, seq, packed=None):
     """K3: `train_forward`'s function, in the kernel on CUDA tensors: one
-    persistent launch for all T steps (`csrc/lstm_step.cuh`). W_h is packed
-    into the kernel's layout per call, since training changes it every
-    step (one pass over W_h, small beside the recurrence)."""
+    persistent launch for all T steps (`csrc/lstm_step.cuh`). `packed` is
+    `pack_w_h(w_h)` where the caller has it; without it W_h is packed per
+    call (training changes it every step: one pass over W_h, small beside
+    the recurrence)."""
     T, B, four_h = x_proj.shape
     H = four_h // 4
     if x_proj.dtype not in _DTYPES:
@@ -104,7 +102,8 @@ def lstm_train_fwd(x_proj, w_h, c0, h0, seq):
         return hs, cs, zs, c0.clone(), h0.clone()
     lstm_train_fwd.launches += 1
     c, h = run_persistent(_library_function("fwd", x_proj.dtype), "lstm_train_fwd",
-                          x_proj, pack_w_h(w_h), c0, h0, seq, (hs, cs, zs))
+                          x_proj, pack_w_h(w_h) if packed is None else packed, c0, h0, seq,
+                          (hs, cs, zs))
     return hs, cs, zs, c, h
 
 
@@ -146,8 +145,11 @@ def train_backward(zs, cs, cs_prev, dout, w_h, seq, dc_T, dh_T):
     return stack(dzs, (0, B, four_h), device=zs.device), dc, dh
 
 
-def lstm_train_bwd(zs, cs, cs_prev, dout, w_h, seq, dc_T, dh_T):
-    """K4: `train_backward`'s function, in the kernel on CUDA tensors."""
+def lstm_train_bwd(zs, cs, cs_prev, dout, w_h, seq, dc_T, dh_T, packed=None):
+    """K4: `train_backward`'s function, in the kernel on CUDA tensors: one
+    persistent launch for all T steps on the forward's layout of W_h.
+    `packed` is `pack_w_h(w_h)` where the caller has it (the autograd
+    function keeps the forward's); without it W_h is packed per call."""
     T, B, four_h = zs.shape
     H = four_h // 4
     if w_h.dtype not in _DTYPES:
@@ -168,14 +170,26 @@ def lstm_train_bwd(zs, cs, cs_prev, dout, w_h, seq, dc_T, dh_T):
     dc = dc_T.clone()
     dh = dh_T.clone()
     dz = torch.empty((T, B, four_h), dtype=torch.float32, device=device)
-    if T:
-        lstm_train_bwd.launches += 1
-        _launch(
-            "bwd", w_h.dtype, device,
-            zs.data_ptr(), cs.data_ptr(), cs_prev.data_ptr(), dout.data_ptr(),
-            w_h.data_ptr(), seq.data_ptr(), dc.data_ptr(), dh.data_ptr(),
-            dz.data_ptr(), T, B, H,
-        )
+    if T == 0 or B == 0 or H == 0:
+        return dz, dc, dh
+    plan = plan_for(B, H, w_h.dtype, device, backward=True)
+    if packed is None:
+        packed = pack_w_h(w_h)
+    check_tensors({"packed": (packed, (plan.tiles, plan.padded_h, TILE_COLUMNS), w_h.dtype)},
+                  device)
+    # two planes of partials, then the barrier's counter (zeroed alone:
+    # every partial is written before it is read)
+    plane = plan.tiles * plan.padded_h * plan.padded_rows
+    part = torch.empty(2 * plane + 1, dtype=torch.float32, device=device)
+    part[-1:].zero_()
+    lstm_train_bwd.launches += 1
+    launch(
+        _library_function("bwd", w_h.dtype), "lstm_train_bwd", device,
+        zs.data_ptr(), cs.data_ptr(), cs_prev.data_ptr(), dout.data_ptr(),
+        packed.data_ptr(), seq.data_ptr(), dc.data_ptr(), dh.data_ptr(),
+        dz.data_ptr(), part.data_ptr(), part[-1:].data_ptr(), T, B, H, plan.rows,
+        plan.blocks, plan.tiles_per_block, plan.resident_chunks, plan.smem_bytes,
+    )
     return dz, dc, dh
 
 
@@ -188,13 +202,16 @@ lstm_train_bwd.launches = 0
 class _Recurrence(torch.autograd.Function):
     """(x_proj, w_h f32, c0, h0, seq) -> (hs, c_T, h_T), with K3 as the
     forward and K4 plus two matmuls as the backward (`rec_fwd`/`rec_bwd`
-    of `_make_recurrence`)."""
+    of `_make_recurrence`). On the card W_h is packed once a step: K4
+    reads the forward's packed copy."""
 
     @staticmethod
     def forward(ctx, x_proj, w_h, c0, h0, seq, compute_dtype):
         w = w_h.to(compute_dtype).contiguous()
-        hs, cs, zs, c_T, h_T = lstm_train_fwd(x_proj, w, c0, h0, seq)
+        packed = pack_w_h(w) if x_proj.device.type == "cuda" else None
+        hs, cs, zs, c_T, h_T = lstm_train_fwd(x_proj, w, c0, h0, seq, packed=packed)
         ctx.save_for_backward(w, c0, h0, seq, hs, cs, zs)
+        ctx.packed = packed
         ctx.dtypes = (x_proj.dtype, w_h.dtype)
         return hs, c_T, h_T
 
@@ -202,20 +219,24 @@ class _Recurrence(torch.autograd.Function):
     def backward(ctx, d_hs, d_cT, d_hT):
         w, c0, h0, seq, hs, cs, zs = ctx.saved_tensors
         x_dtype, w_dtype = ctx.dtypes
-        T, B, H = hs.shape
-        cs_prev = torch.cat([c0[None], cs])[:T]
+        cs_prev = torch.cat([c0[None], cs])[:hs.shape[0]]
         dz, dc0, dh0 = lstm_train_bwd(
             zs, cs, cs_prev.contiguous(), _cotangent(d_hs, hs), w, seq,
-            _cotangent(d_cT, c0), _cotangent(d_hT, h0),
+            _cotangent(d_cT, c0), _cotangent(d_hT, h0), packed=ctx.packed,
         )
-        # the weight grad as one matmul over all steps, operands rounded to
-        # the compute dtype, accumulated in f32
-        h_prev = torch.cat([h0[None], hs])[:T].reshape(T * B, H)
-        dw_h = torch.matmul(
-            h_prev.to(w.dtype).float().T, dz.reshape(T * B, 4 * H).to(w.dtype).float()
-        )
+        ctx.packed = None
+        dw_h = weight_grad(h0, hs, dz, w.dtype)
         # x_proj is stored in the compute dtype, so its gradient is too
         return dz.to(x_dtype), dw_h.to(w_dtype), dc0, dh0, None, None
+
+
+def weight_grad(h0, hs, dz, dtype: torch.dtype) -> torch.Tensor:
+    """dW_h = h_prev^T . dz as one matmul over all T steps, the operands
+    rounded to the compute dtype, accumulated in f32: h0 [B, H], hs
+    [T, B, H], dz [T, B, 4H] -> [H, 4H] f32."""
+    T, B, H = hs.shape
+    h_prev = torch.cat([h0[None], hs])[:T].reshape(T * B, H)
+    return torch.matmul(h_prev.to(dtype).float().T, dz.reshape(T * B, 4 * H).to(dtype).float())
 
 
 def _cotangent(grad: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:

@@ -246,6 +246,56 @@ def test_lstm_train_kernels_match_plain(device, dtype, B, H):
         assert torch.all(dz[n:, b] == 0)
 
 
+def bwd_case(device, dtype, T, B, H, seed):
+    """K4's inputs at full width: stashes from the plain forward, ragged
+    lengths, non-zero final-state gradients."""
+    params, x, seq, c0, h0 = lstm_case(seed, T=T, B=B, H=H, n_in=32)
+    params = {k: v.to(device) for k, v in params.items()}
+    x_proj, w_h = project_inputs(params, x.to(device), dtype)
+    seq, c0, h0 = seq.to(device), c0.to(device), h0.to(device)
+    _, cs, zs, _, _ = train_forward(x_proj, w_h, c0, h0, seq)
+    gen = torch.Generator().manual_seed(seed)
+    dout = (torch.randn(T, B, H, generator=gen) * 0.1).to(device)
+    dc_T = (torch.randn(B, H, generator=gen) * 0.1).to(device)
+    dh_T = (torch.randn(B, H, generator=gen) * 0.1).to(device)
+    cs_prev = torch.cat([c0[None], cs[:-1]]).contiguous()
+    return zs, cs, cs_prev, dout, w_h, seq, dc_T, dh_T
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B", [(1, 16), (2, 3), (50, 16), (50, 1), (50, 8), (50, 32)])
+def test_lstm_train_bwd_kernel_at_full_width(device, dtype, T, B):
+    """K4, one persistent launch, at H = 2048 against its plain version."""
+    args = bwd_case(device, dtype, T, B, 2048, seed=T + B)
+    before = lstm_train_bwd.launches
+    got = lstm_train_bwd(*args)
+    want = train_backward(*args)
+    torch.cuda.synchronize()
+    assert lstm_train_bwd.launches == before + 1
+    for name, g, w in zip(("dz", "dc0", "dh0"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=TOL[dtype], err_msg=name)
+    for b, n in enumerate(args[5].tolist()):
+        assert torch.all(got[0][n:, b] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_train_bwd_calls_are_bit_equal(device, dtype):
+    """The tiles' partials are summed in a fixed order: two calls, queued
+    without a synchronise between them, give the same bits; so does the
+    weights' packed copy handed in instead of packed per call."""
+    from stt_tpu_torch.ops.lstm_kernel import pack_w_h
+
+    args = bwd_case(device, dtype, 20, 16, 2048, seed=3)
+    first = lstm_train_bwd(*args)
+    second = lstm_train_bwd(*args)
+    third = lstm_train_bwd(*args, packed=pack_w_h(args[4]))
+    torch.cuda.synchronize()
+    for other in (second, third):
+        for a, b in zip(first, other):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_train_grads_on_card_match_cpu(device, dtype):
     params, x, seq, c0, h0 = lstm_case(5, T=20, B=8, H=128, n_in=64)
@@ -430,6 +480,9 @@ BEAM_FIXTURES = [
     (2, 20, 29, 500, 40, 1.0, 12, False, None, ()),
     (1, 12, 31, 512, 40, 1.0, 13, True, None, ()),
     (1, 12, 63, 256, 20, 0.9, 14, False, None, ()),
+    # the serving default on flat emissions: the beam fills, then ~14,000 of
+    # the 15,000 pool keys stay live every frame and the radix select decides
+    (3, 40, 29, 500, 40, 1.0, 15, False, None, ()),
 ]
 
 
