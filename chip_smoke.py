@@ -26,7 +26,8 @@
    - K2, the int8 inference recurrence, at H = 2048, B in {1, 8, 16, 32}, T
      in {16, 200}, x_proj in f32 and bf16, ragged lengths, non-zero initial
      state: one step from a common state (the int32 sums are exact), then
-     the sequence, with the count of h_q values that differ;
+     the sequence, with the count of h_q values that differ, the launch
+     plan, its streaming floor and the time per step beside K1's in bf16;
    - K5, the beam scan, at (W, C) in {(8, 8), (32, 29), (128, 29),
      (128, 127), (500, 29), (512, 31)}, B in {1, 16}, T in {16, 200}, peaky
      and flat emissions, one utterance shorter than T; the cutoff branches,
@@ -47,9 +48,10 @@
    tokens and timesteps must be those of the plain beam scan on the same
    emissions, and a batch device decode of the B = 16 logits from a host
    array; and `Model(dir, quantized_inference=True)`, whose `infer_logits`
-   must launch K2 and not K1 and is held against the port's int8 path on
-   the CPU and against the float logits, with K2 held against its plain
-   version and timed on that request's own input projection.
+   must launch K2 and not K1, in one kernel on the card, and is held
+   against the port's int8 path on the CPU and against the float logits,
+   with K2 held against its plain version and timed on that request's own
+   input projection; its time is printed beside the float request's.
 4. Training phase: 32 seeded synthetic utterances of 2-5 s with random
    transcripts, a train and a dev CSV, and `train(SttConfig(...))` of the
    full-width model at B = 16 for one epoch with dropout; every step must
@@ -184,7 +186,7 @@ def streaming_floors(plan, T: int, H: int, dtype: torch.dtype, device) -> dict:
     filled every SM's shared memory with weights. (The first step also
     reads the resident part once: one more step's worth at most.)"""
     props = torch.cuda.get_device_properties(device)
-    w_h = H * 4 * H * (torch.finfo(dtype).bits // 8)
+    w_h = H * 4 * H * dtype.itemsize
     streamed = plan.tiles * plan.groups * (plan.chunks - plan.resident_chunks) * 16384
     on_chip = props.multi_processor_count * getattr(props, "shared_memory_per_block_optin", 232448)
     return {
@@ -468,8 +470,10 @@ def k2_record(name: str, args: tuple, packed: torch.Tensor) -> dict:
     """Holds K2 against its plain version on args = (x_proj, w_h_q,
     step_scale, c0, h0, seq): one step from the common start state, then
     the sequence, with the count of h_q values that differ; and times it
-    beside its bound and the plain version."""
-    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+    beside its bound, its launch plan's streaming floor, the plain version
+    and K1 in bf16 on the same x_proj and lengths with W_h = W_h_q's
+    dequantized image (the float path's fastest recurrence, same shapes)."""
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence, lstm_recurrence_q, pack_w_h, plan_for
     from stt_tpu_torch.ops.quant import recurrence_q
 
     x_proj, w_h_q, step_scale, c0, h0, seq = args
@@ -494,8 +498,18 @@ def k2_record(name: str, args: tuple, packed: torch.Tensor) -> dict:
         raise AssertionError(f"{name}: max abs diff {err} > {K2_SEQ_TOL}, "
                              f"{int(differ.sum())} of {differ.numel()} h_q differ")
     reps = 20 if T <= 16 else 5
-    ms = cuda_ms(lambda: lstm_recurrence_q(*args, packed=packed), reps)
+    run = lambda: lstm_recurrence_q(*args, packed=packed)
+    ms = cuda_ms(run, reps)
     plain_ms = cuda_ms(lambda: recurrence_q(*args), 2 if T > 16 else 5)
+    w_bf16 = (w_h_q.float() * step_scale * 127.0).to(torch.bfloat16)
+    x_bf16 = x_proj.to(torch.bfloat16)
+    k1_packed = pack_w_h(w_bf16)
+    k1_run = lambda: lstm_recurrence(x_bf16, None, c0, h0, seq, packed=k1_packed)
+    k1_ms = cuda_ms(k1_run, reps)
+    # the kernels alone: at T = 16 a call's time is mostly the wrapper's host work
+    device_ms = kernel_device_ms(run, K2_KERNEL, reps)
+    k1_device_ms = kernel_device_ms(k1_run, K1_BF16_KERNEL, reps)
+    plan = plan_for(B, H, torch.int8, x_proj.device)
     item = torch.finfo(x_proj.dtype).bits // 8
     state = 2 * B * H * 4
     moved = (T * B * 4 * H * item + H * 4 * H + 4 * H * 4 + state + B * 4
@@ -508,7 +522,12 @@ def k2_record(name: str, args: tuple, packed: torch.Tensor) -> dict:
         "one_step_max_abs_err": step_err, "one_step_tol": K2_STEP_TOL,
         "max_abs_err": err, "tol": K2_SEQ_TOL,
         "h_q_differ": int(differ.sum()), "h_q_valid": differ.numel(),
+        "kernel": "persistent", "plan": plan.describe(),
+        **streaming_floors(plan, T, H, torch.int8, x_proj.device),
         "ms": ms, "us_per_step": ms / T * 1e3, "plain_ms": plain_ms,
+        "k1_bf16_ms": k1_ms, "k1_bf16_us_per_step": k1_ms / T * 1e3,
+        "device_ms": device_ms, "device_us_per_step": device_ms / T * 1e3,
+        "k1_bf16_device_ms": k1_device_ms, "k1_bf16_device_us_per_step": k1_device_ms / T * 1e3,
         "library_ms": None, "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "w_h_per_step_bound_ms": T * H * 4 * H / HBM_BYTES_PER_S * 1e3,
@@ -709,16 +728,12 @@ def k5_phase(device, seed: int) -> list:
 def kernel_device_ms(fn, name: str, reps: int) -> float:
     """Device milliseconds per call of the kernels named `name` (a
     substring) in fn(), from torch.profiler: the kernel alone, without the
-    host's work around it."""
-    from torch.profiler import ProfilerActivity, profile
+    host's work around it. Fails if fn() launches no such kernel."""
+    from torch.profiler import ProfilerActivity
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in device_events(prof) if name in e.key) / 1e3 / reps
+    _, _, events = device_profile(lambda: [fn() for _ in range(reps)], [ProfilerActivity.CUDA], [name])
+    return sum(e.self_device_time_total for e in events if name in e.key) / 1e3 / reps
 
 
 def k5_against(device, seed: int, other_source: str) -> list:
@@ -838,7 +853,38 @@ def device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-RECURRENCE_KERNEL = "recurrence_kernel"  # K1's and K3's persistent kernel, by name
+PROFILE_TRIES = 3  # sessions of torch.profiler taken before a run without device events fails
+
+
+def device_profile(fn, activities, names=()) -> tuple:
+    """fn() under torch.profiler: (its result, its wall milliseconds, the
+    session's device events). Now and then, in a run of many sessions, one
+    comes back without the kernels that fn launched, their records lost; a
+    session with no device event, or with none named by one of `names` (a
+    substring of a kernel's name that fn must launch), is taken again, up
+    to PROFILE_TRIES times."""
+    from torch.profiler import profile
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            start = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        events = device_events(prof)
+        missing = [n for n in names if not any(n in e.key for e in events)]
+        if events and not missing:
+            return result, wall_ms, events
+        print(f"profiler: session {attempt} of {PROFILE_TRIES} recorded "
+              f"{len(events)} device events, none of {missing}", file=sys.stderr, flush=True)
+    raise AssertionError(f"torch.profiler recorded no device event, or none of {missing}, "
+                         f"in {PROFILE_TRIES} sessions")
+
+
+RECURRENCE_KERNEL = "recurrence_kernel"  # K1's, K2's and K3's persistent kernel, by name
+K2_KERNEL = "recurrence_kernel<signed char"  # its int8 instances (K2), by name
+K1_BF16_KERNEL = "recurrence_kernel<__nv_bfloat16, __nv_bfloat16"  # K1 (or K3) in bf16
 BWD_KERNEL = "bwd_kernel"  # K4's persistent kernel, by name
 
 
@@ -849,31 +895,40 @@ def profiled(name: str, audio_s: float, fn, kernel_names: dict) -> tuple:
     its device events are counted too: the recurrence must show one kernel
     per wrapper call, not one per step. Returns (record, the request's
     result)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence, lstm_recurrence_q
 
-    torch.cuda.synchronize()
-    calls = lstm_recurrence.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    calls = lstm_recurrence.launches - calls
-    events = device_events(prof)
+    counted = {}
+
+    def request():  # the wrapper calls of the session that is kept
+        before = lstm_recurrence.launches, lstm_recurrence_q.launches
+        out = fn()
+        counted["calls"] = lstm_recurrence.launches - before[0]
+        counted["q_calls"] = lstm_recurrence_q.launches - before[1]
+        return out
+
+    result, wall_ms, events = device_profile(request, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                             list(kernel_names.values()))
+    calls, q_calls = counted["calls"], counted["q_calls"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     rec = {"request": f"{name} (profiled)", "audio_s": audio_s, "wall_ms": wall_ms,
-           "device_busy_ms": device_ms or None,
-           "device_idle_share": (1 - device_ms / wall_ms) if device_ms else None}
+           "device_busy_ms": device_ms, "device_idle_share": 1 - device_ms / wall_ms}
     for key, part in kernel_names.items():
-        rec[key] = sum(e.self_device_time_total for e in events if part in e.key) / 1e3 or None
-    if "k1_device_ms" in kernel_names and device_ms:
+        rec[key] = sum(e.self_device_time_total for e in events if part in e.key) / 1e3
+    if "k1_device_ms" in kernel_names:
         rec["k1_wrapper_calls"] = calls
         rec["k1_device_events"] = sum(e.count for e in events if RECURRENCE_KERNEL in e.key)
         if rec["k1_device_events"] != calls:
             raise AssertionError(f"{name}: {rec['k1_device_events']} recurrence kernels on the "
                                  f"card for {calls} wrapper calls")
+    if "k2_device_ms" in kernel_names:
+        rec["k2_wrapper_calls"] = q_calls
+        rec["k2_device_events"] = sum(e.count for e in events if K2_KERNEL in e.key)
+        if not rec["k2_device_events"] == q_calls == 1:
+            raise AssertionError(
+                f"{name}: {rec['k2_device_events']} K2 kernels on the card for {q_calls} wrapper "
+                f"calls, one of each expected; kernels: {[e.key for e in events]}")
     return rec, result
 
 
@@ -1113,12 +1168,19 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
                  {"k1_device_ms": RECURRENCE_KERNEL, "k5_device_ms": "beam_scan_kernel"})[0],
         wide_profile,
         profiled("infer_logits[B=16, int8]", sum(len(a) for a in batch) / rate,
-                 lambda: qgpu.infer_logits(padded, lengths), {"k2_device_ms": "lstm_step_q"})[0],
+                 lambda: qgpu.infer_logits(padded, lengths), {"k2_device_ms": K2_KERNEL})[0],
         profiled("infer_logits[B=16]", sum(len(a) for a in batch) / rate,
                  lambda: gpu.infer_logits(padded, lengths), {"k1_device_ms": RECURRENCE_KERNEL})[0],
     ]
     for rec in profiles:
         print("profile", json.dumps(rec), flush=True)
+    timed = {r["request"]: r for r in requests + profiles}
+    print(f"serving: infer_logits[B=16] int8 {timed['infer_logits[B=16, int8]']['ms']:.2f} ms "
+          f"(profiled: device busy {timed['infer_logits[B=16, int8] (profiled)']['device_busy_ms']} "
+          f"ms, K2 {timed['infer_logits[B=16, int8] (profiled)']['k2_device_ms']} ms) against "
+          f"float {timed['infer_logits[B=16]']['ms']:.2f} ms (device busy "
+          f"{timed['infer_logits[B=16] (profiled)']['device_busy_ms']} ms, K1 "
+          f"{timed['infer_logits[B=16] (profiled)']['k1_device_ms']} ms)", flush=True)
     print(f"serving: probs err {probs_err:.3e} (tol {PROBS_TOL}), logits err "
           f"{logits_err:.3e} (tol {LOGITS_TOL}), transcripts card == cpu: "
           f"{text_gpu == text_cpu}", flush=True)

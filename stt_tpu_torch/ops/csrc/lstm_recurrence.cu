@@ -42,8 +42,8 @@ int lstm_recurrence_f32(const void* x_proj, const void* w_packed,
                         unsigned int* counter, int T, int B, int H, int bt,
                         int blocks, int tiles_per_block, int resident_chunks,
                         int smem, void* stream) {
-  return lstm::run_recurrence<float, false>(
-      x_proj, w_packed, c0, h0, c, h, hm, seq, out, nullptr, nullptr, counter,
+  return lstm::run_recurrence<float, float, false>(
+      x_proj, w_packed, nullptr, c0, h0, c, h, hm, seq, out, nullptr, nullptr, counter,
       T, B, H, bt, blocks, tiles_per_block, resident_chunks, smem, stream);
 }
 
@@ -54,8 +54,8 @@ int lstm_recurrence_bf16(const void* x_proj, const void* w_packed,
                          unsigned int* counter, int T, int B, int H, int bt,
                          int blocks, int tiles_per_block, int resident_chunks,
                          int smem, void* stream) {
-  return lstm::run_recurrence<__nv_bfloat16, false>(
-      x_proj, w_packed, c0, h0, c, h, hm, seq, out, nullptr, nullptr, counter,
+  return lstm::run_recurrence<__nv_bfloat16, __nv_bfloat16, false>(
+      x_proj, w_packed, nullptr, c0, h0, c, h, hm, seq, out, nullptr, nullptr, counter,
       T, B, H, bt, blocks, tiles_per_block, resident_chunks, smem, stream);
 }
 

@@ -1,7 +1,6 @@
 // The LSTM forward recurrence as one persistent kernel, shared by the
-// inference kernel (K1, lstm_recurrence.cu) and the training forward (K3,
-// lstm_train.cu); the int8 recurrence (K2, lstm_recurrence_q.cu) shares the
-// gate math.
+// inference kernel (K1, lstm_recurrence.cu), the training forward (K3,
+// lstm_train.cu) and the int8 inference kernel (K2, lstm_recurrence_q.cu).
 //
 //     z      = x_proj[t] + round(h_{t-1}) . W_h   (f32 accumulate)
 //     i,g,f,o = split(z, 4)                       (gate order i, g, f, o)
@@ -40,12 +39,29 @@
 // then applies the gate math and the length mask; c and the carried h stay
 // in global memory but are touched only by that thread. In bf16 from 8 rows
 // up the multiply-adds run on the tensor cores instead (see Product).
+//
+// K2 is the same walk with int8 weights (WT = int8_t) and x_proj in f32 or
+// bf16 (XT):
+//
+//     h_q = round_half_even(h_{t-1} * 127)        int8, the staged copy
+//     acc = h_q . W_h_q                           int32, the exact sum
+//     z   = x_proj[t] + float(acc) * step_scale   (product, then sum, each
+//                                                  rounded once)
+//
+// A chunk of int8 weights is [64 columns, 256 k] (k contiguous per column,
+// as the tensor cores' A operand wants it), so at H = 2048 a tile is 8
+// chunks (128 KB) and stays whole in shared memory up to B = 32: a step
+// then reads only h_q and x_proj[t]. From 8 rows up the product runs on
+// the int8 tensor cores (mma.sync m16n8k32), below on __dp4a; the partial
+// sums meet as int32 and are converted once, in the epilogue.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace lstm {
 
@@ -66,25 +82,7 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// The gate math and the length mask for one (row, unit) at flat index idx,
-// from its four pre-activations z (i, g, f, o): updates c in place, writes
-// the carried h to h_next and the emitted output to out_t. Returns the
-// carried c. The int8 recurrence (lstm_recurrence_q.cu) uses it.
-__device__ __forceinline__ float finish(
-    const float (&z)[4], float* __restrict__ c,
-    const float* __restrict__ h_prev, float* __restrict__ h_next,
-    float* __restrict__ out_t, size_t idx, bool valid) {
-  const float c_old = c[idx];
-  const float c_new = sigmoid(z[2]) * c_old + sigmoid(z[0]) * tanhf(z[1]);
-  const float h_new = sigmoid(z[3]) * tanhf(c_new);
-  const float c_kept = valid ? c_new : c_old;
-  c[idx] = c_kept;
-  h_next[idx] = valid ? h_new : h_prev[idx];
-  out_t[idx] = valid ? h_new : 0.0f;
-  return c_kept;
-}
-
-// ---- the persistent recurrence (K1, K3) --------------------------------
+// ---- the persistent recurrence (K1, K2, K3) ----------------------------
 //
 // The constants below are mirrored by the launch plan in
 // stt_tpu_torch/ops/lstm_kernel.py, which sizes the grid and the shared
@@ -106,16 +104,19 @@ struct Chunk {
   static constexpr int KC = CHUNK_BYTES / (TC * (int)sizeof(WT));  // k rows
 };
 
-template <typename WT>
+template <typename WT, typename XT = WT>
 struct Args {
-  const WT* x_proj;        // [T, B, 4H], W_h's dtype
-  const void* w_packed;    // [tiles, nch * KC, TC], W_h's dtype
+  const XT* x_proj;        // [T, B, 4H], W_h's dtype (K2: f32 or bf16)
+  const void* w_packed;    // [tiles, nch * KC, TC], W_h's dtype (K2: int8,
+                           // [tiles, nch, TC, KC], see Product)
+  const float* step_scale; // [4H], K2 only: W_h's per-channel scale / 127
   const float* c0;         // [B, H], the state the first step starts from
   const float* h0;         // [B, H]
   float* c;                // [B, H], the carried c: written by every step
   float* h;                // [B, H], the carried h, unrounded
   void* hm;                // [2, groups, nch, BT, HROW] h rounded to and
-                           // stored in W_h's dtype, zero padded; hm[0] = h0
+                           // stored in W_h's dtype (K2: h_q), zero padded;
+                           // hm[0] = h0
   const int32_t* seq;      // [B]
   float* out;              // [T, B, H] (K3: hs)
   float* cs;               // [T, B, H] (STASH)
@@ -123,7 +124,8 @@ struct Args {
   unsigned int* counter;   // the barrier's arrivals, 0 at launch
   int T, B, H;
   int tiles_per_block;     // tiles a block owns (blockIdx.x + i * gridDim.x)
-  int resident_chunks;     // chunks per tile kept in shared memory
+  int resident_chunks;     // chunks per tile kept in shared memory; when
+                           // that is all of them the ring holds h alone
 };
 
 // ---- bulk copies (the TMA unit) and the barriers that count their bytes --
@@ -266,19 +268,30 @@ struct Cell {
 // of the chunk's k; A comes from the [k, column] chunk through
 // ldmatrix.trans, B from the staged h rows. f32 stays on FFMA: TF32 could
 // not hold its tolerance.
+//
+// int8 (K2): ldmatrix has no 8-bit .trans, and m16n8k32's A fragment wants
+// each column's k contiguous, so an int8 chunk is packed [64 columns, 256 k]
+// (`pack_w_h_q`) and A comes through ldmatrix without .trans; the warps
+// split columns and k as in bf16, with mma.sync m16n8k32 into int32. Below
+// 8 rows warp w sums k 32 w .. 32 w + 31 and a lane columns lane and
+// lane + 32, with __dp4a on 16-byte runs of k. An int32 sum over k reaches
+// 2048 * 127 * 127 > 2^24, so partial sums meet as int32 (Acc), exact in
+// any order.
 template <typename WT, int BT>
 struct Product {
-  static constexpr bool MMA = sizeof(WT) == 2 && BT >= 8;
+  static constexpr bool INT8 = sizeof(WT) == 1;
+  static constexpr bool MMA = sizeof(WT) <= 2 && BT >= 8;
   static constexpr int KC = Chunk<WT>::KC;
-  // bf16 rows of staged h are padded by 16 bytes: the mma's loads of one k
-  // from 8 rows then fall into 8 different banks
-  static constexpr int HROW = KC + (sizeof(WT) == 2 ? 8 : 0);
+  // bf16 and int8 rows of staged h are padded by 16 bytes: the mma's loads
+  // of one k from 8 rows then fall into 8 different banks
+  static constexpr int HROW = KC + (sizeof(WT) < 4 ? 16 / (int)sizeof(WT) : 0);
   static constexpr int SLICES = MMA ? 2 : KSLICES;  // partial sums per column
   static constexpr int ACC = MMA ? BT / 8 : BT;     // accumulator rows a thread
   // rows whose sums meet per round, and that the epilogue finishes per round
   static constexpr int PR = MMA ? BT : (BT < ER ? BT : ER);
   static constexpr int EPR = MMA ? (BT < 16 ? BT : 16) : PR;
-  static constexpr int PART = SLICES * PR * PSTRIDE;  // floats of partial sums
+  static constexpr int PART = SLICES * PR * PSTRIDE;  // partial sums (4 bytes)
+  using Acc = typename std::conditional<INT8, int32_t, float>::type;
 };
 
 // bf16 chunks are packed with the 16-byte pieces of row k exchanged by
@@ -289,9 +302,20 @@ __device__ __forceinline__ int swizzled(int k, int piece) {
   return sizeof(WT) == 2 ? (piece ^ (k & 7)) : piece;
 }
 
+// int8 chunks [64 columns, 256 k]: piece p (16 k) of column m lies at
+// p ^ (m & 7) (`pack_w_h_q`), so that 8 columns' pieces at one k fall into
+// different banks, for ldmatrix and for the __dp4a loads alike
+__device__ __forceinline__ const int8_t* column_piece(const int8_t* chunk, int m, int piece) {
+  return chunk + m * Chunk<int8_t>::KC + (piece ^ (m & 7)) * 16;
+}
+
 __device__ __forceinline__ void store_rounded(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_rounded(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+// h_q = round_half_even(h * 127); |h| < 1, so no clip
+__device__ __forceinline__ void store_rounded(int8_t* p, float v) {
+  *p = static_cast<int8_t>(__float2int_rn(v * 127.0f));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(const void* smem_src, unsigned (&r)[4]) {
@@ -314,12 +338,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-template <typename WT, bool STASH, int BT>
+template <typename WT, typename XT, bool STASH, int BT>
 __global__ void __launch_bounds__(PTHREADS, 1)
-recurrence_kernel(const Args<WT> a) {
+recurrence_kernel(const Args<WT, XT> a) {
   using P = Product<WT, BT>;
+  using Acc = typename P::Acc;
   constexpr bool MMA = P::MMA;
+  constexpr bool INT8 = P::INT8;
   constexpr int KC = P::KC;
   constexpr int HROW = P::HROW;
   constexpr int WCH = KC * TC;             // weights per chunk
@@ -328,10 +362,14 @@ recurrence_kernel(const Args<WT> a) {
   constexpr int EPR = P::EPR;
   constexpr int ROUNDS = BT / EPR;
   constexpr int PIECE = 16 / (int)sizeof(WT);  // elements of a 16-byte piece
+  const int T = a.T, B = a.B, H = a.H;
+  const int nch = (H + KC - 1) / KC;
+  const int rc = a.resident_chunks;
   extern __shared__ __align__(16) unsigned char smem[];
+  // the ring's weight slots exist only when some chunks stream
   WT* const ring_w = reinterpret_cast<WT*>(smem);
-  WT* const ring_h = reinterpret_cast<WT*>(smem + (size_t)STAGES * CHUNK_BYTES);
-  float* const part = reinterpret_cast<float*>(ring_h + STAGES * HCH);
+  WT* const ring_h = reinterpret_cast<WT*>(smem + (rc < nch ? (size_t)STAGES * CHUNK_BYTES : 0));
+  Acc* const part = reinterpret_cast<Acc*>(ring_h + STAGES * HCH);
   // one barrier per slot of the ring, in BAR_BYTES
   unsigned long long* const full = reinterpret_cast<unsigned long long*>(part + P::PART);
   WT* const resident = reinterpret_cast<WT*>(part + P::PART + BAR_BYTES / 4);
@@ -341,13 +379,10 @@ recurrence_kernel(const Args<WT> a) {
   const int warp = tid >> 5;
   const int cg = tid & 15;   // FFMA: the thread's 4 columns, 4 cg .. 4 cg + 3
   const int kg = tid >> 4;   // and its 4 k of every pass, 4 kg .. 4 kg + 3
-  const int T = a.T, B = a.B, H = a.H;
   const size_t H4 = 4 * (size_t)H;
-  const int nch = (H + KC - 1) / KC;
   const int groups = (B + BT - 1) / BT;
   const size_t hm_plane = (size_t)groups * nch * HCH;
   const int tiles = (H + UT - 1) / UT;
-  const int rc = a.resident_chunks;
   int my_tiles = 0;
   for (int i = 0; i < a.tiles_per_block; ++i)
     my_tiles += (blockIdx.x + i * gridDim.x) < tiles;
@@ -382,7 +417,7 @@ recurrence_kernel(const Args<WT> a) {
   const int e_u = tid % UT;
   auto load_cell = [&](int t, int b, int j) {
     Cell cell;
-    const WT* x = a.x_proj + ((size_t)t * B + b) * H4 + j;
+    const XT* x = a.x_proj + ((size_t)t * B + b) * H4 + j;
 #pragma unroll
     for (int g = 0; g < 4; ++g) cell.x[g] = to_f32(x[(size_t)g * H]);
     const size_t idx = (size_t)b * H + j;
@@ -416,7 +451,7 @@ recurrence_kernel(const Args<WT> a) {
     for (int n = 0; n < STAGES - 1; ++n, ahead.next(rc, nch, groups))
       if (n < V && tid == 0) request_h(ahead, n0 + n, hm_cur);
 
-    float acc[P::ACC][4];
+    Acc acc[P::ACC][4];
     Cell first;  // round 0 of the group, loaded before its chunks
     first.valid = false;
     Walk at;  // the visit that computes
@@ -427,7 +462,7 @@ recurrence_kernel(const Args<WT> a) {
 #pragma unroll
         for (int i = 0; i < P::ACC; ++i) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+          for (int q = 0; q < 4; ++q) acc[i][q] = 0;
         }
         const int b = g * BT + e_bb, j = tile * UT + e_u;
         if (tid < EPR * UT && b < B && j < H) first = load_cell(t, b, j);
@@ -447,7 +482,43 @@ recurrence_kernel(const Args<WT> a) {
                                    ? (resident - ring_w) + (at.tl * rc + at.slot) * WCH
                                    : ring_slot * WCH);
       const WT* hs = ring_h + (size_t)ring_slot * HCH;
-      if constexpr (MMA) {
+      if constexpr (MMA && INT8) {
+        // ldmatrix: lanes 8 i .. 8 i + 7 address column block i & 1 and k
+        // half i >> 1 of the 16 x 32 A tile
+        const int m = (warp & 3) * 16 + (lane & 15);
+        const int kh = (warp >> 2) * (KC / 2);
+        const WT* hq = hs + (lane >> 2) * HROW + kh + 4 * (lane & 3);
+#pragma unroll
+        for (int ks = 0; ks < KC / 64; ++ks) {
+          unsigned af[4];
+          ldmatrix_x4(column_piece(ws, m, (kh + ks * 32) / 16 + (lane >> 4)), af);
+#pragma unroll
+          for (int nt = 0; nt < BT / 8; ++nt) {
+            const WT* hb = hq + nt * 8 * HROW + ks * 32;
+            mma_s8(acc[nt], af, *reinterpret_cast<const unsigned*>(hb),
+                   *reinterpret_cast<const unsigned*>(hb + 16));
+          }
+        }
+      } else if constexpr (INT8) {
+#pragma unroll
+        for (int p = 0; p < KC / KSLICES / 16; ++p) {
+          const int piece = warp * (KC / KSLICES / 16) + p;
+          const int4 w0 = *reinterpret_cast<const int4*>(column_piece(ws, lane, piece));
+          const int4 w1 = *reinterpret_cast<const int4*>(column_piece(ws, lane + 32, piece));
+#pragma unroll
+          for (int bb = 0; bb < BT; ++bb) {
+            const int4 hv = *reinterpret_cast<const int4*>(hs + bb * HROW + piece * 16);
+            acc[bb][0] = __dp4a(hv.x, w0.x, acc[bb][0]);
+            acc[bb][0] = __dp4a(hv.y, w0.y, acc[bb][0]);
+            acc[bb][0] = __dp4a(hv.z, w0.z, acc[bb][0]);
+            acc[bb][0] = __dp4a(hv.w, w0.w, acc[bb][0]);
+            acc[bb][1] = __dp4a(hv.x, w1.x, acc[bb][1]);
+            acc[bb][1] = __dp4a(hv.y, w1.y, acc[bb][1]);
+            acc[bb][1] = __dp4a(hv.z, w1.z, acc[bb][1]);
+            acc[bb][1] = __dp4a(hv.w, w1.w, acc[bb][1]);
+          }
+        }
+      } else if constexpr (MMA) {
         const int m0 = (warp & 3) * 16 + (lane & 8);       // ldmatrix: column block
         const int kq = (warp >> 2) * (KC / 2) + ((lane >> 4) << 3) + (lane & 7);
         const WT* hq = hs + (lane >> 2) * HROW + (warp >> 2) * (KC / 2) + 2 * (lane & 3);
@@ -492,17 +563,17 @@ recurrence_kernel(const Args<WT> a) {
       if constexpr (MMA) {
         // a thread holds rows 2 (lane % 4) and + 1 of each 8-row tile, for
         // columns lane / 4 and + 8 of its gate
-        float* mine_part = part + ((warp >> 2) * BT + 2 * (lane & 3)) * PSTRIDE +
-                           (warp & 3) * 16 + (lane >> 2);
+        Acc* mine_part = part + ((warp >> 2) * BT + 2 * (lane & 3)) * PSTRIDE +
+                         (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
         for (int nt = 0; nt < BT / 8; ++nt) {
-          float* row = mine_part + nt * 8 * PSTRIDE;
+          Acc* row = mine_part + nt * 8 * PSTRIDE;
           row[0] = acc[nt][0];
           row[PSTRIDE] = acc[nt][1];
           row[8] = acc[nt][2];
           row[PSTRIDE + 8] = acc[nt][3];
         }
-      } else {
+      } else if constexpr (!INT8) {
 #pragma unroll
         for (int bb = 0; bb < BT; ++bb) {
 #pragma unroll
@@ -519,7 +590,13 @@ recurrence_kernel(const Args<WT> a) {
           if (mine) cell = load_cell(t, b, j);
           if constexpr (!MMA) __syncthreads();  // the last round's sums were read
         }
-        if constexpr (!MMA) {
+        if constexpr (!MMA && INT8) {
+#pragma unroll
+          for (int bb = 0; bb < PR; ++bb) {
+            part[(warp * PR + bb) * PSTRIDE + lane] = acc[r * PR + bb][0];
+            part[(warp * PR + bb) * PSTRIDE + lane + 32] = acc[r * PR + bb][1];
+          }
+        } else if constexpr (!MMA) {
           if (lane < 16) {
 #pragma unroll
             for (int bb = 0; bb < PR; ++bb)
@@ -541,11 +618,14 @@ recurrence_kernel(const Args<WT> a) {
         float z[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          float s = 0.0f;
+          Acc s = 0;
 #pragma unroll
           for (int w = 0; w < P::SLICES; ++w)
             s += part[(w * PR + prow) * PSTRIDE + q * UT + e_u];
-          z[q] = cell.x[q] + s;
+          if constexpr (INT8)  // product and sum rounded as the plain version rounds them
+            z[q] = __fadd_rn(cell.x[q], __fmul_rn(__int2float_rn(s), a.step_scale[q * H + j]));
+          else
+            z[q] = cell.x[q] + s;
         }
         const float c_new = sigmoid(z[2]) * cell.c_old + sigmoid(z[0]) * tanhf(z[1]);
         const float h_new = sigmoid(z[3]) * tanhf(c_new);
@@ -588,28 +668,31 @@ int launch_cooperative(void (*kernel)(const A), const A& a, int blocks, int smem
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename WT, bool STASH, int BT>
-int launch_rows(const Args<WT>& a, int blocks, int smem, cudaStream_t s) {
-  return launch_cooperative(recurrence_kernel<WT, STASH, BT>, a, blocks, smem, s);
+template <typename WT, typename XT, bool STASH, int BT>
+int launch_rows(const Args<WT, XT>& a, int blocks, int smem, cudaStream_t s) {
+  return launch_cooperative(recurrence_kernel<WT, XT, STASH, BT>, a, blocks, smem, s);
 }
 
-// The host side of K1 (STASH false: cs and zs unused) and K3: x_proj
-// [T, B, 4H] and w_packed (`pack_w_h`'s layout) in WT; c0, h0 [B, H] f32 in;
-// c, h [B, H] f32 out; hm [2, groups, chunks, bt, HROW] scratch in WT with
-// the rounded h0 in hm[0] and zeros elsewhere; seq [B]; out [T, B, H] (K3: hs); cs [T, B, H];
-// zs [T, B, 4H] bf16; counter: one zeroed uint32. bt, blocks,
-// tiles_per_block, resident_chunks and smem are the wrapper's launch plan.
-// Returns the CUDA error, 0 when the kernel was launched.
-template <typename WT, bool STASH>
-int run_recurrence(const void* x_proj, const void* w_packed, const float* c0,
-                   const float* h0, float* c, float* h, void* hm,
+// The host side of K1 (STASH false: cs and zs unused), K3 and K2 (WT
+// int8_t, STASH false): x_proj [T, B, 4H] in XT and w_packed (`pack_w_h`'s
+// layout, K2: `pack_w_h_q`'s) in WT; step_scale [4H] f32 (K2 only, else
+// null); c0, h0 [B, H] f32 in; c, h [B, H] f32 out; hm [2, groups, chunks,
+// bt, HROW] scratch in WT with the rounded h0 in hm[0] and zeros elsewhere;
+// seq [B]; out [T, B, H] (K3: hs); cs [T, B, H]; zs [T, B, 4H] bf16;
+// counter: one zeroed uint32. bt, blocks, tiles_per_block, resident_chunks
+// and smem are the wrapper's launch plan. Returns the CUDA error, 0 when
+// the kernel was launched.
+template <typename WT, typename XT, bool STASH>
+int run_recurrence(const void* x_proj, const void* w_packed, const float* step_scale,
+                   const float* c0, const float* h0, float* c, float* h, void* hm,
                    const int32_t* seq, float* out, float* cs, void* zs,
                    unsigned int* counter, int T, int B, int H, int bt,
                    int blocks, int tiles_per_block, int resident_chunks,
                    int smem, void* stream) {
-  Args<WT> a;
-  a.x_proj = static_cast<const WT*>(x_proj);
+  Args<WT, XT> a;
+  a.x_proj = static_cast<const XT*>(x_proj);
   a.w_packed = w_packed;
+  a.step_scale = step_scale;
   a.c0 = c0;
   a.h0 = h0;
   a.c = c;
@@ -627,10 +710,10 @@ int run_recurrence(const void* x_proj, const void* w_packed, const float* c0,
   a.resident_chunks = resident_chunks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bt) {
-    case 1: return launch_rows<WT, STASH, 1>(a, blocks, smem, s);
-    case 8: return launch_rows<WT, STASH, 8>(a, blocks, smem, s);
-    case 16: return launch_rows<WT, STASH, 16>(a, blocks, smem, s);
-    case 32: return launch_rows<WT, STASH, 32>(a, blocks, smem, s);
+    case 1: return launch_rows<WT, XT, STASH, 1>(a, blocks, smem, s);
+    case 8: return launch_rows<WT, XT, STASH, 8>(a, blocks, smem, s);
+    case 16: return launch_rows<WT, XT, STASH, 16>(a, blocks, smem, s);
+    case 32: return launch_rows<WT, XT, STASH, 32>(a, blocks, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -499,8 +499,8 @@ int lstm_train_fwd_f32(const void* x_proj, const void* w_packed,
                        void* zs, unsigned int* counter, int T, int B, int H,
                        int bt, int blocks, int tiles_per_block,
                        int resident_chunks, int smem, void* stream) {
-  return lstm::run_recurrence<float, true>(
-      x_proj, w_packed, c0, h0, c, h, hm, seq, hs, cs, zs, counter, T, B, H, bt,
+  return lstm::run_recurrence<float, float, true>(
+      x_proj, w_packed, nullptr, c0, h0, c, h, hm, seq, hs, cs, zs, counter, T, B, H, bt,
       blocks, tiles_per_block, resident_chunks, smem, stream);
 }
 
@@ -511,8 +511,8 @@ int lstm_train_fwd_bf16(const void* x_proj, const void* w_packed,
                         void* zs, unsigned int* counter, int T, int B, int H,
                         int bt, int blocks, int tiles_per_block,
                         int resident_chunks, int smem, void* stream) {
-  return lstm::run_recurrence<__nv_bfloat16, true>(
-      x_proj, w_packed, c0, h0, c, h, hm, seq, hs, cs, zs, counter, T, B, H, bt,
+  return lstm::run_recurrence<__nv_bfloat16, __nv_bfloat16, true>(
+      x_proj, w_packed, nullptr, c0, h0, c, h, hm, seq, hs, cs, zs, counter, T, B, H, bt,
       blocks, tiles_per_block, resident_chunks, smem, stream);
 }
 

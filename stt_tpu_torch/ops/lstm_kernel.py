@@ -8,9 +8,9 @@ plain version (`stt_tpu_torch.models.lstm.recurrence`) for CPU tensors;
 version is `stt_tpu_torch.ops.quant.recurrence_q`. There is no shape gate:
 batch 1 and ragged batches take the kernels too.
 
-The float kernel is one persistent launch for all T steps (see
-`csrc/lstm_step.cuh`). Its host side is here and runs on the CPU too:
-`pack_w_h` re-lays W_h so that a block's slice is contiguous, and
+Both are one persistent launch for all T steps (see `csrc/lstm_step.cuh`).
+Their host side is here and runs on the CPU too: `pack_w_h` (float) and
+`pack_w_h_q` (int8) re-lay W_h so that a block's slice is contiguous, and
 `launch_plan` sizes the grid and the shared memory from (B, H, itemsize)
 and the card's SM count. The training forward (`ops/lstm_train.py`) launches
 the same kernel through `run_persistent`.
@@ -82,9 +82,9 @@ class LaunchPlan:
         return self.groups * self.rows
 
     def h_row(self, itemsize: int) -> int:
-        """Values in a staged row of h: a chunk's k, bf16 rows padded by 16
-        bytes (see csrc/lstm_step.cuh)."""
-        return self.chunk_rows + (8 if itemsize == 2 else 0)
+        """Values in a staged row of h: a chunk's k, bf16 and int8 rows
+        padded by 16 bytes (see csrc/lstm_step.cuh)."""
+        return self.chunk_rows + row_padding(itemsize)
 
     def tiles_of(self, block: int) -> range:
         return range(block, self.tiles, self.blocks)
@@ -108,16 +108,24 @@ def chunk_rows(itemsize: int) -> int:
     return CHUNK_BYTES // (TILE_COLUMNS * itemsize)
 
 
+def row_padding(itemsize: int) -> int:
+    """Values a staged row of h is padded by: 16 bytes in bf16 and int8, so
+    that the tensor cores' loads of one k from 8 rows meet no bank conflict."""
+    return 16 // itemsize if itemsize < 4 else 0
+
+
 @functools.lru_cache(maxsize=None)
 def launch_plan(B: int, H: int, itemsize: int, sm_count: int,
                 smem_limit: int = SMEM_LIMIT) -> LaunchPlan:
     """The launch of the persistent recurrence for B rows of H units with
-    weights of `itemsize` bytes on a card of `sm_count` SMs: at most one
-    block per SM, each owning whole tiles; the ring and the meeting place of
-    the partial sums come first, and the shared memory left holds as many
-    chunks of each tile's weights as fit (fewer as B grows: the ring's h
-    slots and the sums take more)."""
-    if min(B, H, sm_count) < 1 or itemsize not in (2, 4):
+    weights of `itemsize` bytes (4 f32, 2 bf16, 1 int8) on a card of
+    `sm_count` SMs: at most one block per SM, each owning whole tiles. When
+    every chunk of a block's tiles fits beside the ring's h slots and the
+    meeting place of the partial sums, all stay resident and the ring carries
+    h alone; else the ring's weight slots come first too, and the shared
+    memory left holds as many chunks of each tile as fit (fewer as B grows:
+    the ring's h slots and the sums take more)."""
+    if min(B, H, sm_count) < 1 or itemsize not in (1, 2, 4):
         raise ValueError(f"no launch plan for B={B} H={H} itemsize={itemsize} SMs={sm_count}")
     rows = next((r for r in ROW_GROUPS if B <= r), ROW_GROUPS[-1])
     groups = -(-B // rows)
@@ -126,17 +134,21 @@ def launch_plan(B: int, H: int, itemsize: int, sm_count: int,
     blocks = -(-tiles // tiles_per_block)
     kc = chunk_rows(itemsize)
     chunks = -(-H // kc)
-    # bf16 from 8 rows up takes the tensor cores: two partial sums per column
-    # over all the group's rows; else one per warp over a round's rows
-    tensor_cores = itemsize == 2 and rows >= 8
+    # bf16 and int8 from 8 rows up take the tensor cores: two partial sums
+    # per column over all the group's rows; else one per warp over a round's
+    # rows
+    tensor_cores = itemsize < 4 and rows >= 8
     part_rows = 2 * rows if tensor_cores else WARPS * min(rows, EPILOGUE_ROWS)
-    # a staged row of h: kc values in the weights' dtype, bf16 rows padded
-    h_row = (kc + (8 if itemsize == 2 else 0)) * itemsize
-    fixed = (STAGES * (CHUNK_BYTES + rows * h_row) + part_rows * PART_STRIDE * 4
-             + BARRIER_BYTES)
+    h_row = (kc + row_padding(itemsize)) * itemsize  # bytes
+    fixed = STAGES * rows * h_row + part_rows * PART_STRIDE * 4 + BARRIER_BYTES
+    whole = chunks * tiles_per_block * CHUNK_BYTES
+    if fixed + whole <= smem_limit:
+        return LaunchPlan(rows, groups, tiles, tiles_per_block, blocks, kc, chunks, chunks,
+                          fixed + whole)
+    fixed += STAGES * CHUNK_BYTES
     if fixed > smem_limit:
         raise ValueError(f"the ring alone needs {fixed} bytes of shared memory, over {smem_limit}")
-    resident = min(chunks, (smem_limit - fixed) // (CHUNK_BYTES * tiles_per_block))
+    resident = (smem_limit - fixed) // (CHUNK_BYTES * tiles_per_block)
     return LaunchPlan(rows, groups, tiles, tiles_per_block, blocks, kc, chunks, resident,
                       fixed + resident * tiles_per_block * CHUNK_BYTES)
 
@@ -191,9 +203,7 @@ def pack_w_h(w_h: torch.Tensor) -> torch.Tensor:
     if four_h != 4 * H or w_h.dtype not in _ENTRY:
         raise ValueError(f"w_h must be [H, 4H] float32 or bfloat16, got "
                          f"{tuple(w_h.shape)} {w_h.dtype}")
-    kc = chunk_rows(w_h.element_size())
-    tiles = -(-H // UNITS_PER_TILE)
-    hp = -(-H // kc) * kc
+    tiles, hp, _ = packed_shape(H, w_h.dtype)
     padded = torch.zeros((hp, 4, tiles * UNITS_PER_TILE), dtype=w_h.dtype, device=w_h.device)
     padded[:H, :, :H] = w_h.reshape(H, 4, H)
     packed = (padded.reshape(hp, 4, tiles, UNITS_PER_TILE).permute(2, 0, 1, 3)
@@ -208,16 +218,17 @@ def swizzle_pieces(packed: torch.Tensor) -> torch.Tensor:
     by piece ^ (k & 7). Its own inverse."""
     tiles, hp, _ = packed.shape
     return (packed.reshape(tiles, hp * 8, 8)
-            .index_select(1, _swizzled_pieces(hp, packed.device))
+            .index_select(1, _swizzled(hp, 8, packed.device))
             .reshape(tiles, hp, TILE_COLUMNS))
 
 
 @functools.lru_cache(maxsize=None)
-def _swizzled_pieces(hp: int, device) -> torch.Tensor:
-    """For each of a tile's hp * 8 pieces, the piece that takes its place."""
-    k = torch.arange(hp, device=device)[:, None]
-    piece = torch.arange(8, device=device)[None, :]
-    return (k * 8 + (piece ^ (k & 7))).reshape(-1)
+def _swizzled(rows: int, pieces: int, device) -> torch.Tensor:
+    """For each of `rows` x `pieces` 16-byte pieces, the piece that takes its
+    place when piece p of row r moves to p ^ (r & 7)."""
+    r = torch.arange(rows, device=device)[:, None]
+    piece = torch.arange(pieces, device=device)[None, :]
+    return (r * pieces + (piece ^ (r & 7))).reshape(-1)
 
 
 def plan_for(B: int, H: int, dtype: torch.dtype, device, backward: bool = False) -> LaunchPlan:
@@ -226,18 +237,21 @@ def plan_for(B: int, H: int, dtype: torch.dtype, device, backward: bool = False)
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT)
     plan = bwd_launch_plan if backward else launch_plan
-    return plan(B, H, torch.finfo(dtype).bits // 8, props.multi_processor_count, limit)
+    return plan(B, H, dtype.itemsize, props.multi_processor_count, limit)
 
 
 def stage_h(h0: torch.Tensor, plan: LaunchPlan, dtype: torch.dtype) -> Tuple[torch.Tensor, int]:
     """The kernel's scratch for h, as (a flat tensor of `dtype`, the elements
     of one plane): two planes of h rounded to and stored in the weights'
-    dtype, laid out as the kernel stages it ([group, chunk, row, staged row]:
-    a chunk's rows lie together), zero where padded, the first holding h0;
-    and behind them the four bytes of the barrier's counter, zeroed with
+    dtype (int8: h_q = round(h * 127), half to even, as the plain version
+    quantizes), laid out as the kernel stages it ([group, chunk, row, staged
+    row]: a chunk's rows lie together), zero where padded, the first holding
+    h0; and behind them the four bytes of the barrier's counter, zeroed with
     them by the one fill."""
     B, H = h0.shape
-    item = torch.finfo(dtype).bits // 8
+    item = dtype.itemsize
+    if dtype == torch.int8:
+        h0 = torch.round(h0 * 127.0).to(torch.int8)
     shape = (plan.groups, plan.chunks, plan.rows, plan.h_row(item))
     plane = plan.groups * plan.chunks * plan.rows * plan.h_row(item)
     scratch = torch.zeros(2 * plane + 4 // item, dtype=dtype, device=h0.device)
@@ -250,33 +264,50 @@ def stage_h(h0: torch.Tensor, plan: LaunchPlan, dtype: torch.dtype) -> Tuple[tor
     return scratch, plane
 
 
+def packed_shape(H: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    """The shape of W_h [H, 4H] in the persistent kernel's layout:
+    [tiles, HP, 64] for `pack_w_h`, [tiles, chunks, 64, 256] for
+    `pack_w_h_q`."""
+    tiles = -(-H // UNITS_PER_TILE)
+    kc = chunk_rows(dtype.itemsize)
+    chunks = -(-H // kc)
+    if dtype == torch.int8:
+        return (tiles, chunks, TILE_COLUMNS, kc)
+    return (tiles, chunks * kc, TILE_COLUMNS)
+
+
 def run_persistent(fn, name: str, x_proj, packed, c0, h0, seq,
-                   outputs: Sequence[torch.Tensor]) -> State:
-    """Launch the persistent recurrence `fn` (K1's or K3's entry point) once
-    for all T >= 1 steps on CUDA tensors: allocates the state, the scratch
-    for the rounded h and the barrier's counter, hands the kernel the launch
-    plan, and returns the final (c, h). `outputs` are the tensors the entry
-    point writes per step, in its order."""
+                   outputs: Sequence[torch.Tensor],
+                   step_scale: Optional[torch.Tensor] = None) -> State:
+    """Launch the persistent recurrence `fn` (K1's or K3's entry point, or
+    with `step_scale` K2's, whose weights are int8) once for all T >= 1
+    steps on CUDA tensors: allocates the state, the scratch for the rounded
+    h and the barrier's counter, hands the kernel the launch plan, and
+    returns the final (c, h). `outputs` are the tensors the entry point
+    writes per step, in its order."""
     T, B, four_h = x_proj.shape
     H = four_h // 4
     device = x_proj.device
-    plan = plan_for(B, H, x_proj.dtype, device)
-    if tuple(packed.shape) != (plan.tiles, plan.padded_h, TILE_COLUMNS) or \
-            packed.dtype != x_proj.dtype or packed.device != device or not packed.is_contiguous():
+    w_dtype = x_proj.dtype if step_scale is None else torch.int8
+    plan = plan_for(B, H, w_dtype, device)
+    shape = packed_shape(H, w_dtype)
+    if tuple(packed.shape) != shape or packed.dtype != w_dtype or packed.device != device \
+            or not packed.is_contiguous():
         raise ValueError(
-            f"packed W_h must be {(plan.tiles, plan.padded_h, TILE_COLUMNS)} {x_proj.dtype} "
-            f"on {device}, got {tuple(packed.shape)} {packed.dtype} on {packed.device}"
+            f"packed W_h must be {shape} {w_dtype} on {device}, got "
+            f"{tuple(packed.shape)} {packed.dtype} on {packed.device}"
         )
     c = torch.empty_like(c0)
     h = torch.empty_like(h0)
-    item = x_proj.element_size()
-    scratch, plane = stage_h(h0, plan, x_proj.dtype)
+    scratch, plane = stage_h(h0, plan, w_dtype)
     launch(
         fn, name, device,
-        x_proj.data_ptr(), packed.data_ptr(), c0.data_ptr(), h0.data_ptr(),
+        x_proj.data_ptr(), packed.data_ptr(),
+        *(() if step_scale is None else (step_scale.data_ptr(),)),
+        c0.data_ptr(), h0.data_ptr(),
         c.data_ptr(), h.data_ptr(), scratch.data_ptr(), seq.data_ptr(),
         *(o.data_ptr() for o in outputs),
-        scratch.data_ptr() + 2 * plane * item, T, B, H, plan.rows, plan.blocks,
+        scratch.data_ptr() + 2 * plane * w_dtype.itemsize, T, B, H, plan.rows, plan.blocks,
         plan.tiles_per_block, plan.resident_chunks, plan.smem_bytes,
     )
     return c, h
@@ -376,22 +407,40 @@ _ENTRY_Q = {torch.float32: "lstm_recurrence_q_f32", torch.bfloat16: "lstm_recurr
 @functools.lru_cache(maxsize=None)
 def _library_function_q(dtype: torch.dtype):
     fn = getattr(load("lstm_recurrence_q"), _ENTRY_Q[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def pack_w_h_q(w_h_q: torch.Tensor) -> torch.Tensor:
-    """W_h_q [H, 4H] int8 -> the int8 kernel's layout [H/4, 4H, 4] int8: the
-    four consecutive k of one column lie in one 32-bit word, low byte
-    first, as `__dp4a` takes them. H must be a multiple of 4."""
-    H, four_h = w_h_q.shape
-    if w_h_q.dtype != torch.int8 or H % 4 or four_h != 4 * H:
-        raise ValueError(
-            f"w_h_q must be [H, 4H] int8 with H a multiple of 4, got "
-            f"{tuple(w_h_q.shape)} {w_h_q.dtype}"
-        )
-    return w_h_q.reshape(H // 4, 4, four_h).permute(0, 2, 1).contiguous()
+    """W_h_q [H, 4H] int8 (gate blocks i, g, f, o) -> the int8 kernel's layout
+    [tiles, chunks, 64, 256]: tile i holds the 64 columns of hidden units
+    16 i .. 16 i + 15 for the four gates (gate-major), as `pack_w_h` does,
+    cut along k into chunks of 256 k, and within a chunk each column's 256 k
+    lie together (four consecutive k to a 32-bit word), as the tensor cores'
+    A operand takes them. Units past H and k past H are zero, so any H >= 1
+    is taken. The sixteen 16-byte pieces of column m change places, piece p
+    going to p ^ (m & 7): the kernel's loads of one piece from 8 columns
+    then meet no bank conflict, and a chunk still travels as one copy."""
+    if w_h_q.dim() != 2 or w_h_q.dtype != torch.int8 or w_h_q.shape[1] != 4 * w_h_q.shape[0] \
+            or w_h_q.shape[0] < 1:
+        raise ValueError(f"w_h_q must be [H, 4H] int8, got {tuple(w_h_q.shape)} {w_h_q.dtype}")
+    H = w_h_q.shape[0]
+    tiles, chunks, _, kc = packed_shape(H, torch.int8)
+    padded = torch.zeros((chunks * kc, 4, tiles * UNITS_PER_TILE), dtype=torch.int8,
+                         device=w_h_q.device)
+    padded[:H, :, :H] = w_h_q.reshape(H, 4, H)
+    packed = (padded.reshape(chunks, kc, 4, tiles, UNITS_PER_TILE).permute(3, 0, 2, 4, 1)
+              .reshape(tiles, chunks, TILE_COLUMNS, kc))
+    return swizzle_column_pieces(packed)
+
+
+def swizzle_column_pieces(packed: torch.Tensor) -> torch.Tensor:
+    """Exchange the 16-byte pieces of every column m of int8 chunks
+    [tiles, chunks, 64, 256] by piece ^ (m & 7). Its own inverse."""
+    return (packed.reshape(-1, TILE_COLUMNS * 16, 16)
+            .index_select(1, _swizzled(TILE_COLUMNS, 16, packed.device))
+            .reshape(packed.shape))
 
 
 def lstm_recurrence_q(
@@ -410,10 +459,8 @@ def lstm_recurrence_q(
     quantized parameters do); without it the weights are packed per call."""
     from stt_tpu_torch.ops.quant import recurrence_q
 
-    if x_proj.dim() != 3 or x_proj.shape[2] % 16:
-        raise ValueError(
-            f"x_proj must be [T, B, 4H] with H a multiple of 4, got {tuple(x_proj.shape)}"
-        )
+    if x_proj.dim() != 3 or x_proj.shape[2] % 4:
+        raise ValueError(f"x_proj must be [T, B, 4H], got {tuple(x_proj.shape)}")
     T, B, four_h = x_proj.shape
     H = four_h // 4
     if x_proj.dtype not in _ENTRY_Q:
@@ -428,26 +475,19 @@ def lstm_recurrence_q(
         "seq": (seq, (B,), torch.int32),
     }
     if packed is not None:
-        expected["packed"] = (packed, (H // 4, four_h, 4), torch.int8)
+        expected["packed"] = (packed, packed_shape(H, torch.int8), torch.int8)
     check_tensors(expected, device)
     if device.type == "cpu":
         return recurrence_q(x_proj, w_h_q, step_scale, c0, h0, seq)
+    out = torch.empty((T, B, H), dtype=torch.float32, device=device)
+    if T == 0 or B == 0 or H == 0:
+        return out, (c0.clone(), h0.clone())
     if packed is None:
         packed = pack_w_h_q(w_h_q)
-    c = c0.clone()
-    h = torch.empty((2, B, H), dtype=torch.float32, device=device)
-    h[0].copy_(h0)
-    h_q = torch.empty((2, B, H), dtype=torch.int8, device=device)
-    out = torch.empty((T, B, H), dtype=torch.float32, device=device)
-    if T == 0:
-        return out, (c, h[0])
     lstm_recurrence_q.launches += 1
-    launch(
-        _library_function_q(x_proj.dtype), "lstm_recurrence_q", device,
-        x_proj.data_ptr(), packed.data_ptr(), step_scale.data_ptr(), c.data_ptr(),
-        h.data_ptr(), h_q.data_ptr(), seq.data_ptr(), out.data_ptr(), T, B, H,
-    )
-    return out, (c, h[T % 2])
+    state = run_persistent(_library_function_q(x_proj.dtype), "lstm_recurrence_q",
+                           x_proj, packed, c0, h0, seq, (out,), step_scale)
+    return out, state
 
 
 lstm_recurrence_q.launches = 0

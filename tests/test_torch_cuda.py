@@ -424,6 +424,74 @@ def test_lstm_q_kernel_sequence_matches_plain(device, dtype, B, H):
         assert torch.all(out[n:, b] == 0)
 
 
+# the serving width at every batch row group, and widths that are no
+# multiple of the tile or of the 256 k of an int8 chunk
+K2_SHAPES = [(1, 2048), (8, 2048), (16, 2048), (32, 2048), (3, 100), (5, 2050)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 200])
+@pytest.mark.parametrize("B,H", K2_SHAPES)
+def test_lstm_q_kernel_at_full_width_and_edges(device, dtype, T, B, H):
+    """K2 against `recurrence_q` with ragged lengths and a non-zero start:
+    one step within K2_STEP_TOL, 200 within K2_SEQ_TOL."""
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q, pack_w_h_q
+    from stt_tpu_torch.ops.quant import recurrence_q
+
+    args = q_case(T + B + H, T, B, H, dtype, device)
+    packed = pack_w_h_q(args[1])
+    before = lstm_recurrence_q.launches
+    out, (c, h) = lstm_recurrence_q(*args, packed=packed)
+    want, (c_ref, h_ref) = recurrence_q(*args)
+    torch.cuda.synchronize()
+    assert lstm_recurrence_q.launches == before + 1
+    tol = K2_STEP_TOL if T == 1 else K2_SEQ_TOL
+    flips = (torch.round(out * 127) != torch.round(want * 127)).float().mean().item()
+    for got, ref in ((out, want), (c, c_ref), (h, h_ref)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=tol,
+                                   err_msg=f"h_q differing: {flips:.2%}")
+    for b, n in enumerate(args[5].tolist()):
+        assert torch.all(out[n:, b] == 0)
+
+
+def test_lstm_q_kernel_is_one_kernel_per_call(device):
+    """All T steps of K2 run in one kernel on the card, at the dp4a shape
+    (B = 1) and on the tensor cores (B = 16)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+
+    for B in (1, 16):
+        args = q_case(B, 30, B, 256, torch.float32, device)
+        lstm_recurrence_q(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lstm_recurrence_q(*args)
+            lstm_recurrence_q(*args)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "recurrence_kernel" in e.key]
+        counts = sum(e.count for e in prof.key_averages() if "recurrence_kernel" in e.key)
+        assert counts == 2 and all("signed char" in n for n in names), (B, names, counts)
+
+
+def test_lstm_q_kernel_calls_are_bit_equal(device):
+    """Two calls queued without a synchronise, and a third after one: the
+    barrier's counter starts anew and the int32 sums are exact, so the bits
+    are the same."""
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+
+    for dtype, B in ((torch.float32, 1), (torch.bfloat16, 16)):
+        args = q_case(7, 50, B, 2048, dtype, device)
+        first = lstm_recurrence_q(*args)
+        second = lstm_recurrence_q(*args)
+        torch.cuda.synchronize()
+        third = lstm_recurrence_q(*args)
+        torch.cuda.synchronize()
+        for other in (second, third):
+            assert torch.equal(first[0], other[0])
+            assert torch.equal(first[1][0], other[1][0]) and torch.equal(first[1][1], other[1][1])
+
+
 def test_int8_matmul_is_exact_on_the_card(device):
     """K = 2048 with every operand at +-127: 33.0 M per sum, past float32's
     2^24; narrow and ragged shapes too."""

@@ -162,8 +162,8 @@ def test_staged_h_is_h0_rounded_chunk_by_chunk(B, H, dtype):
 def test_launch_plan_and_pack_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         launch_plan(0, 128, 4, SMS)
-    with pytest.raises(ValueError):
-        launch_plan(1, 128, 1, SMS)
+    with pytest.raises(ValueError):  # 4 (f32), 2 (bf16) and 1 (int8, K2) only
+        launch_plan(1, 128, 8, SMS)
     with pytest.raises(ValueError):
         pack_w_h(torch.zeros(8, 30))
     with pytest.raises(ValueError):

@@ -135,14 +135,30 @@ def test_layer_norm_models_are_refused():
 
 
 def test_packed_weights_hold_four_k_per_word():
-    w = torch.from_numpy(np.random.RandomState(0).randint(-127, 128, (8, 32)).astype(np.int8))
-    packed = pack_w_h_q(w)
-    assert packed.shape == (2, 32, 4) and packed.is_contiguous()
-    for k4 in range(2):
-        for i in range(4):
-            assert torch.equal(packed[k4, :, i], w[4 * k4 + i])
-    with pytest.raises(ValueError):
-        pack_w_h_q(torch.zeros((6, 24), dtype=torch.int8))
+    """`pack_w_h_q`'s layout [tiles, chunks, 64 columns, 256 k]: column m of
+    tile i is unit 16 i + m % 16 of gate m // 16, and once the pieces' swizzle
+    is undone its k lie together, so each 32-bit word holds four consecutive
+    k, low byte first; the padding is zero. H = 6, no multiple of 4, is taken
+    as stt_tpu takes it (tests/test_torch_lstm_q_plan.py holds the layout at
+    larger H)."""
+    from stt_tpu_torch.ops.lstm_kernel import swizzle_column_pieces
+
+    for H in (6, 8, 20):
+        w = torch.from_numpy(np.random.RandomState(H).randint(-127, 128, (H, 4 * H)).astype(np.int8))
+        packed = pack_w_h_q(w)
+        tiles = -(-H // 16)
+        assert packed.shape == (tiles, 1, 64, 256) and packed.is_contiguous()
+        cols = swizzle_column_pieces(packed)
+        for tile in range(tiles):
+            for m in range(64):
+                gate, unit = m // 16, 16 * tile + m % 16
+                got = cols[tile, 0, m]
+                if unit < H:
+                    assert torch.equal(got[:H], w[:, gate * H + unit]), (tile, m)
+                    got = got[H:]
+                assert not got.any(), (tile, m)
+        word = int(cols[0, 0, 0, :4].view(torch.int32))
+        assert [(word >> (8 * i)) & 0xFF for i in range(4)] == [v & 0xFF for v in w[:4, 0].tolist()]
 
 
 @pytest.mark.parametrize("m,k,n", [(16, 2048, 29), (3, 2048, 8), (1, 494, 16)])
@@ -232,6 +248,75 @@ def test_apply_model_quantized_matches_jax_on_the_same_qparams():
     for g, w, name in ((got, want, "logits"), (c, c_w, "c"), (h, h_w, "h")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=LOGITS_TOL,
                                    err_msg=f"{name}; x_q flips after layer_1: {x_q_flips:.3%}")
+
+
+def narrow_configs(H):
+    """A model whose n_cell_dim is H (any H, not only multiples of 4), for
+    the JAX scan path and the port."""
+    kw = dict(GEOMETRY, n_hidden=32, n_cell_dim=H, dropout_rates=(0.0,) * 6)
+    return JaxModelConfig(**kw, fused_lstm=False), ModelConfig(**kw)
+
+
+@pytest.mark.parametrize("H", [6, 10, 12])
+def test_any_n_cell_dim_quantizes_and_matches_jax(H):
+    """Each package quantizes stt_tpu's init_params at its own hand, and
+    `apply_model_quantized` gives the same logits on the same seeded features
+    at n_cell_dim 6 and 10 (which the int8 path once refused) and 12. The
+    logits are equal where no h_q crosses a rounding boundary between the
+    two recurrences (the carried state then differs by the last bits of
+    XLA's and ATen's sigmoid and tanh: 1e-5); where one does, REC_TOL."""
+    jax_cfg, cfg = narrow_configs(H)
+    params = jax.device_get(init_params(jax.random.PRNGKey(H), jax_cfg))
+    jq = jax_quant.quantize_params(params, jax_cfg)
+    got_q = quant.quantize_params(dict(params_from_numpy(params, cfg).named_parameters()), cfg)
+    assert torch.equal(got_q["lstm_rec"]["w_h_q"], torch.from_numpy(np.array(jq["lstm_rec"]["w_h_q"])))
+    feats, seq = features(H, B=4, T=20)
+    want, (c_w, h_w) = jax_quant.apply_model_quantized(
+        jq, jnp.asarray(feats), seq_len=jnp.asarray(seq), config=jax_cfg)
+    got, (c, h) = quant.apply_model_quantized(
+        got_q, torch.from_numpy(feats), seq_len=torch.from_numpy(seq), config=cfg)
+    # the recurrences' outputs from the same input projection: h_q flips
+    x_proj = quant.input_projection_q(got_q, torch.from_numpy(feats), cfg)
+    rec = got_q["lstm_rec"]
+    zeros = torch.zeros(4, H)
+    out, _ = quant.recurrence_q(x_proj, rec["w_h_q"], rec["step_scale"], zeros, zeros,
+                                torch.from_numpy(seq))
+    want_out, _ = jax_quant._lstm_recurrence_scan(
+        jnp.asarray(x_proj.numpy()), jq["lstm_rec"]["w_h_q"], jq["lstm_rec"]["step_scale"],
+        jnp.zeros((4, H)), jnp.zeros((4, H)), jnp.asarray(seq))
+    share = flips(out.numpy(), want_out)
+    assert got.shape == (4, 20, 29)
+    if share:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=REC_TOL,
+                                   err_msg=f"{share:.3%} of h_q differ")
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for g, w in ((c, c_w), (h, h_w)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=REC_TOL if share else 1e-5)
+
+
+def test_qparams_from_numpy_takes_n_cell_dim_6():
+    """stt_tpu's quantized parameters at n_cell_dim 6 read by the port: the
+    int8 weights and scales as they were, W_h_q packed for the kernel."""
+    jax_cfg, cfg = narrow_configs(6)
+    params = jax.device_get(init_params(jax.random.PRNGKey(3), jax_cfg))
+    jq = jax.device_get(jax_quant.quantize_params(params, jax_cfg))
+    q = qparams_from_numpy(jq)
+    for name in (*quant.DENSE, "lstm_in"):
+        np.testing.assert_array_equal(q[name].w_q.numpy(), np.asarray(jq[name].w_q), err_msg=name)
+        np.testing.assert_array_equal(q[name].w_scale.numpy(), np.asarray(jq[name].w_scale))
+    rec = q["lstm_rec"]
+    np.testing.assert_array_equal(rec["w_h_q"].numpy(), np.asarray(jq["lstm_rec"]["w_h_q"]))
+    np.testing.assert_array_equal(rec["step_scale"].numpy(), np.asarray(jq["lstm_rec"]["step_scale"]))
+    assert torch.equal(rec["w_h_q_packed"], pack_w_h_q(rec["w_h_q"]))
+    assert rec["w_h_q_packed"].shape == (1, 1, 64, 256)
+    feats, seq = features(8, B=3, T=12)
+    want, _ = jax_quant.apply_model_quantized(jq, jnp.asarray(feats), seq_len=jnp.asarray(seq),
+                                              config=jax_cfg)
+    got, _ = quant.apply_model_quantized(q, torch.from_numpy(feats),
+                                         seq_len=torch.from_numpy(seq), config=cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=LOGITS_TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
