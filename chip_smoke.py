@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke run of stt_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4]
+    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4,decoder]
 
 1. Setup: prints the card's name and power limit, turns TF32 off, builds
    every CUDA kernel of the package from its sources (build/kernels/), one
-   nvcc per source, all at once.
+   nvcc per source, all at once, and beside them the native CTC decoder
+   with g++ (build/native/).
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the shapes of the main path and beyond, and times the kernel,
    the plain version, the bound and, where one exists, the one PyTorch
@@ -52,6 +53,21 @@
    against the port's int8 path on the CPU and against the float logits,
    with K2 held against its plain version and timed on that request's own
    input projection; its time is printed beside the float request's.
+   Before these, the host decoder's requests, decoded by the native
+   decoder: the 4.7 s stream at beam 32 and at 500, the stream with a
+   scorer and hot words at beam 500, and `stt_with_metadata` with them,
+   each with its wall time, RTF, host decode time, device busy time and
+   idle share, and the native and the Python decoder re-run alone on the
+   same emissions, whose results each must equal. The scorers are .scorer
+   packages built first by the port's own tools from a seeded corpus
+   (3-gram; words, and characters in bytes mode).
+3b. Decoder phase: the native decoder against the port's Python one on
+   the model's emissions and seeded peaky ones (beam 32, with and without
+   the scorer and hot words, through next_pruned with emissions pruned on
+   the card, and a bytes-mode package), tokens and timesteps equal and
+   confidences within 1e-6; beam 500 natively against the Python decoder
+   at 128; the batch fan-out on infer_logits[B=16]'s softmax at 1 and 16
+   threads.
 4. Training phase: 32 seeded synthetic utterances of 2-5 s with random
    transcripts, a train and a dev CSV, and `train(SttConfig(...))` of the
    full-width model at B = 16 for one epoch with dropout; every step must
@@ -76,6 +92,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -124,6 +141,23 @@ PROBS_TOL = 1e-4  # card vs CPU probabilities of the full-width model, f32
 LOGITS_TOL = 2e-3  # card vs CPU logits of the full-width model, f32
 LABELS = list(" abcdefghijklmnopqrstuvwxyz'")  # English, 28 labels + blank
 BEAM_WIDTH = 32
+# the native (C++) decoder against the port's Python one on the same inputs:
+# the same float64 terms, in places summed in another order (the tolerance
+# of tests/test_native_decoder.py); tokens and timesteps must be equal
+DECODER_CONF_TOL = 1e-6
+# the scorer's corpus: sentences drawn from these words with Zipf-like
+# weights, a 3-gram Kneser-Ney model, and the package's default alpha/beta
+LM_WORDS = (
+    "the of and to a in is you that it he was for on are as with his they i at be this "
+    "have from or one had by word but not what all were we when your can said there use "
+    "an each which she do how their if will up other about out many then them these so "
+    "some her would make like him into time has look two more write go see number no way "
+    "could people my than first water been call who oil its now find long down day did get "
+    "come made may part over new sound take only little work know place year live me back "
+    "give most very after thing our just name good dark suit greasy wash year don't can't"
+).split()
+LM_SENTENCES, LM_ORDER, LM_ALPHA, LM_BETA = 3000, 3, 0.93, 1.18
+HOT_WORDS = {"water": 2.0, "the": -0.5, "year": 1.0}
 TRAIN_SHAPE = (16, 256)  # (B, T) of the training phase's longest batch
 
 
@@ -933,49 +967,335 @@ def profiled(name: str, audio_s: float, fn, kernel_names: dict) -> tuple:
 
 
 def profile_request(gpu, audio: np.ndarray, alphabet) -> dict:
-    """Where one stt request's time goes, with the host beam decoder re-run
-    alone on its emissions."""
-    from stt_tpu_torch.decode import ctc_beam_search_decoder
-
+    """Where one stt request's time goes, with the host beam decoder (the
+    native one, and the Python one beside it) re-run alone on its
+    emissions."""
     rec, (_, probs) = profiled("stt_with_emissions", len(audio) / gpu.sample_rate(),
                                lambda: gpu.stt_with_emissions(audio), {"k1_device_ms": RECURRENCE_KERNEL})
-    start = time.perf_counter()
-    ctc_beam_search_decoder(probs, alphabet, BEAM_WIDTH)
-    rec["host_decode_ms"] = (time.perf_counter() - start) * 1e3
+    rec["host_decode_ms"] = decode_timed(probs, alphabet, BEAM_WIDTH, "native")[1]
+    rec["python_decode_ms"] = decode_timed(probs, alphabet, BEAM_WIDTH, "python")[1]
     print("profile", json.dumps(rec), flush=True)
     return rec
 
 
-def serving_phase(device, seed: int, work_dir: str) -> dict:
+def build_scorers(work_dir: str, seed: int) -> dict:
+    """Two .scorer packages made by the port's own tools from a seeded
+    corpus: a 3-gram of words over LABELS, and a bytes-mode one, a 3-gram
+    of characters (the words' letters run together, as for a language
+    written without spaces). The estimator is lmplz's modified Kneser-Ney
+    with its discount fallback (the small vocabulary leaves some counts of
+    counts empty). Prints each one's build time and size."""
+    from stt_tpu_torch.lm.arpa import estimate_kneser_ney_lmplz, write_arpa
+    from stt_tpu_torch.tools.generate_scorer_package import create_package
+
+    os.makedirs(work_dir, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    weights = 1.0 / np.arange(1, len(LM_WORDS) + 1)
+    words = [list(rs.choice(LM_WORDS, size=rs.randint(3, 13), p=weights / weights.sum()))
+             for _ in range(LM_SENTENCES)]
+    alphabet_path = os.path.join(work_dir, "alphabet.txt")
+    with open(alphabet_path, "w") as f:
+        f.write("".join(f"{c}\n" for c in LABELS))
+    record = {}
+    for mode, sentences in (("alphabet", words), ("bytes", [list("".join(s)) for s in words])):
+        start = time.perf_counter()
+        vocab, arpa = (os.path.join(work_dir, f"{mode}.{ext}") for ext in ("vocab", "arpa"))
+        with open(vocab, "w") as f:
+            f.write("\n".join(sorted({w for s in sentences for w in s})) + "\n")
+        write_arpa(estimate_kneser_ney_lmplz(sentences, order=LM_ORDER, discount_fallback=True), arpa)
+        path = create_package(alphabet_path if mode == "alphabet" else None, arpa, vocab,
+                              os.path.join(work_dir, f"{mode}.scorer"), LM_ALPHA, LM_BETA,
+                              force_bytes_output_mode=True if mode == "bytes" else None)
+        record[mode] = {"path": path, "build_s": time.perf_counter() - start,
+                        "package_bytes": os.path.getsize(path), "sentences": LM_SENTENCES,
+                        "order": LM_ORDER}
+        print("scorer", mode, json.dumps(record[mode]), flush=True)
+    return record
+
+
+def smoke_artifact(work_dir: str, seed: int) -> tuple:
+    """The full-width DeepSpeech with random weights from `seed`, saved as
+    an artifact in `work_dir`: (its config, feature config, alphabet,
+    parameter count)."""
     from stt_tpu_torch.alphabet import Alphabet
     from stt_tpu_torch.artifact import build_metadata, save_artifact
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.models import DeepSpeech, ModelConfig
+
+    alphabet = Alphabet().init_from_labels(LABELS)
+    config = ModelConfig(n_out=len(LABELS) + 1)  # the 2048 geometry
+    fc = FeatureConfig()
+    model = DeepSpeech(config, generator=torch.Generator().manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    save_artifact(work_dir, model, build_metadata(config, fc, alphabet, beam_width=BEAM_WIDTH), alphabet)
+    return config, fc, alphabet, n_params
+
+
+def serving_inputs(seed: int, fc, n_input: int) -> tuple:
+    """The serving phase's seeded audio: three utterances (2.0, 3.3 and
+    4.7 s) and a batch of 16 of 2-5 s as padded MFCC features. Returns
+    (utterances, batch audio, padded features, lengths)."""
+    from stt_tpu_torch.frontend import audio_to_mfcc
+
+    rng = np.random.RandomState(seed)
+    rate = fc.sample_rate
+    audios = [utterance(s, rate, rng) for s in (2.0, 3.3, 4.7)]
+    batch = [utterance(s, rate, rng) for s in rng.uniform(2.0, 5.0, size=16)]
+    feats = [audio_to_mfcc(torch.from_numpy(a), fc).numpy() for a in batch]
+    lengths = np.array([f.shape[0] for f in feats], np.int32)
+    padded = np.zeros((16, lengths.max(), n_input), np.float32)
+    for i, f in enumerate(feats):
+        padded[i, : len(f)] = f
+    return audios, batch, padded, lengths
+
+
+HOST_DECODE = {"ms": 0.0}  # host decoder time of the streams made since it was last set to 0
+
+
+def time_host_decoders() -> None:
+    """Make every host decoder a stream makes add the time of its calls
+    (next, next_pruned, decode) to HOST_DECODE["ms"]."""
+    from stt_tpu_torch.stream import streaming
+
+    make = streaming.make_decoder_state
+
+    class Timed:
+        def __init__(self, inner):
+            self._inner = inner
+
+        def __getattr__(self, name):
+            fn = getattr(self._inner, name)
+            if name not in ("next", "next_pruned", "decode"):
+                return fn
+
+            def call(*args, **kwargs):
+                start = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    HOST_DECODE["ms"] += (time.perf_counter() - start) * 1e3
+            return call
+
+    streaming.make_decoder_state = lambda *args, **kwargs: Timed(make(*args, **kwargs))
+
+
+def decoder_inputs(device, seed: int, work_dir: str) -> dict:
+    """For the decoder phase run alone: what the serving phase hands it,
+    the full-width model's emissions of the 4.7 s utterance and the
+    softmax of infer_logits[B=16]."""
+    from stt_tpu_torch.serve import Model
+
+    config, fc, _, _ = smoke_artifact(work_dir, seed)
+    audios, batch, padded, lengths = serving_inputs(seed, fc, config.n_input)
+    gpu = Model(work_dir)
+    probs16 = torch.softmax(gpu.infer_logits(padded, lengths), dim=-1).cpu().numpy()
+    return {"emissions": gpu.stt_with_emissions(audios[2])[1], "probs16": probs16,
+            "lengths16": lengths, "audio_s16": sum(len(a) for a in batch) / fc.sample_rate}
+
+
+def peaky_probs(T: int, C: int, seed: int) -> np.ndarray:
+    """Seeded emissions with one strong class a frame (blank in about half
+    of them) and a rival beside it, float32 like the model's."""
+    rs = np.random.RandomState(seed)
+    logits = rs.randn(T, C)
+    winners = np.where(rs.rand(T) < 0.5, C - 1, rs.randint(C - 1, size=T))
+    logits[np.arange(T), winners] += 6.0
+    logits[np.arange(T), rs.randint(C, size=T)] += rs.uniform(2.0, 5.0, size=T)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)).astype(np.float32)
+
+
+def decode_timed(probs, alphabet, beam: int, implementation: str, scorer=None, hot_words=None,
+                 pruned=None, num_results: int = 1) -> tuple:
+    """One decode of `probs` (or of the pruned arrays) from a fresh state:
+    (its results, its milliseconds)."""
+    from stt_tpu_torch.decode import make_decoder_state
+
+    start = time.perf_counter()
+    state = make_decoder_state(alphabet, beam, 1.0, 40, scorer, hot_words, implementation)
+    if pruned is not None:
+        state.next_pruned(*pruned)
+    else:
+        state.next(probs)
+    results = state.decode(num_results)
+    return results, (time.perf_counter() - start) * 1e3
+
+
+def live(results: list) -> list:
+    """The candidates whose score is finite. Under pruning a dictionary
+    can leave every prefix at -inf; the order of those is no decoder's to
+    keep."""
+    return [r for r in results if np.isfinite(r.confidence)]
+
+
+def same_results(got: list, want: list) -> bool:
+    got, want = live(got), live(want)
+    return len(got) == len(want) and all(
+        g.tokens == w.tokens and g.timesteps == w.timesteps
+        and abs(g.confidence - w.confidence) <= DECODER_CONF_TOL for g, w in zip(got, want))
+
+
+def decoder_phase(device, seed: int, scorers: dict, inputs: dict) -> dict:
+    """The native decoder against the port's Python DecoderState on the same
+    inputs (tokens and timesteps equal, confidences within
+    DECODER_CONF_TOL), each timed: the full-width model's emissions of the
+    4.7 s utterance and seeded peaky ones, at beam 32 with and without the
+    scorer and hot words and through next_pruned (pruned on the card), a
+    bytes-mode package; then beam 500 natively against the Python decoder at
+    beam 128, to say how far they grow apart; then the batch fan-out on
+    infer_logits[B=16]'s softmax, native at beam 500 with the scorer, at 1
+    and 16 threads."""
+    from stt_tpu_torch.alphabet import Alphabet, UTF8Alphabet
+    from stt_tpu_torch.decode import ctc_beam_search_decoder_batch
+    from stt_tpu_torch.decode.device import prune_emissions
+    from stt_tpu_torch.decode.scorer_package import KenLMScorer
+
+    alphabet = Alphabet().init_from_labels(LABELS)
+    scorer = KenLMScorer(scorers["alphabet"]["path"])
+    emissions = np.asarray(inputs["emissions"], np.float32)
+    sources = {"model emissions": emissions,
+               "peaky random": peaky_probs(len(emissions), len(LABELS) + 1, seed)}
+    holds, apart = [], []
+    for source, probs in sources.items():
+        # exact ties between classes in one frame (there the two decoders
+        # may order candidates differently): printed, to explain a mismatch
+        ties = int(sum(len(np.unique(row)) < len(row) for row in probs))
+        for case, lm, cutoff in (("beam 32", False, None),
+                                 ("beam 32, scorer + hot words", True, None),
+                                 ("beam 32, next_pruned (top 10, 0.99)", False, (10, 0.99)),
+                                 ("beam 32, next_pruned (top 20, 0.999), scorer + hot words", True,
+                                  (20, 0.999))):
+            pruned = None if cutoff is None else [a.cpu().numpy() for a in prune_emissions(
+                torch.from_numpy(probs).to(device), cutoff_top_n=cutoff[0], cutoff_prob=cutoff[1])]
+            args = dict(scorer=scorer if lm else None, hot_words=HOT_WORDS if lm else None,
+                        pruned=pruned, num_results=3)
+            native, native_ms = decode_timed(probs, alphabet, 32, "native", **args)
+            python, python_ms = decode_timed(probs, alphabet, 32, "python", **args)
+            rec = {"input": source, "case": case, "frames": len(probs), "tied_frames": ties,
+                   "native_ms": native_ms, "python_ms": python_ms, "equal": same_results(native, python),
+                   "live_candidates": len(live(python)), "transcript": native[0].transcript,
+                   "max_conf_diff": max([abs(a.confidence - b.confidence)
+                                         for a, b in zip(live(native), live(python))] or [0.0])}
+            print("decoder", json.dumps(rec), flush=True)
+            holds.append(rec)
+        wide, wide_ms = decode_timed(probs, alphabet, 500, "native", scorer, HOT_WORDS)
+        narrow, narrow_ms = decode_timed(probs, alphabet, 128, "python", scorer, HOT_WORDS)
+        rec = {"input": source, "native_beam_500_ms": wide_ms, "python_beam_128_ms": narrow_ms,
+               "same_transcript": wide[0].transcript == narrow[0].transcript,
+               "confidence_500": wide[0].confidence, "confidence_128": narrow[0].confidence,
+               "transcript_500": wide[0].transcript, "transcript_128": narrow[0].transcript}
+        print("decoder beam 500 vs 128", json.dumps(rec), flush=True)
+        apart.append(rec)
+    # bytes mode: a character LM over UTF-8 bytes (255 labels and blank)
+    utf8 = UTF8Alphabet()
+    probs = peaky_probs(120, 256, seed + 1)
+    bytes_scorer = KenLMScorer(scorers["bytes"]["path"])
+    native, native_ms = decode_timed(probs, utf8, 16, "native", bytes_scorer, num_results=3)
+    python, python_ms = decode_timed(probs, utf8, 16, "python", bytes_scorer, num_results=3)
+    rec = {"input": "peaky random, 256 classes", "case": "beam 16, bytes-mode scorer",
+           "frames": len(probs), "native_ms": native_ms, "python_ms": python_ms,
+           "equal": same_results(native, python), "live_candidates": len(live(python)),
+           "max_conf_diff": max([abs(a.confidence - b.confidence)
+                                 for a, b in zip(live(native), live(python))] or [0.0])}
+    print("decoder", json.dumps(rec), flush=True)
+    holds.append(rec)
+    failed = [r for r in holds if not r["equal"]]
+    if failed:
+        raise AssertionError(f"native decoder differs from the Python one: {failed}")
+    if not all(r["live_candidates"] for r in holds if "next_pruned" not in r["case"]):
+        raise AssertionError(f"a decode without pruning ended with no live candidate: {holds}")
+
+    # the batch fan-out: ctypes releases the GIL around each native call
+    batch = []
+    audio_s = inputs["audio_s16"]
+    results = {}
+    for threads in (1, 16):
+        start = time.perf_counter()
+        results[threads] = ctc_beam_search_decoder_batch(
+            inputs["probs16"], inputs["lengths16"], alphabet, 500, threads, scorer=scorer,
+            hot_words=HOT_WORDS)
+        ms = (time.perf_counter() - start) * 1e3
+        rec = {"request": f"ctc_beam_search_decoder_batch[B=16, native, beam 500, scorer, "
+                          f"num_processes {threads}]",
+               "ms": ms, "audio_s": audio_s, "audio_s_per_s": audio_s / (ms / 1e3)}
+        print("request", json.dumps(rec), flush=True)
+        batch.append(rec)
+    flat = {k: [(r[0].tokens, r[0].timesteps, r[0].confidence) for r in v] for k, v in results.items()}
+    if flat[1] != flat[16]:
+        raise AssertionError("batch decode at 16 threads differs from one thread")
+    print(f"decoder: native == Python in {len(holds)} cases; batch 16 threads "
+          f"{batch[0]['ms'] / batch[1]['ms']:.2f}x faster than 1", flush=True)
+    return {"holds": holds, "beam_500_vs_128": apart, "batch": batch,
+            "scorers": scorers, "conf_tol": DECODER_CONF_TOL}
+
+
+def host_decoder_row(gpu, name: str, fn, beam: int, scorers, emissions, audio_s: float,
+                     request, requests: list, reruns: dict) -> dict:
+    """One request decoded on the host by the native decoder, at `beam`,
+    with the scorer and hot words when `scorers` is given: its wall time,
+    RTF and host decode time (`request`), its device busy time and idle
+    share (a profiled run of it), and the native and the Python decoder
+    re-run alone on the same emissions, whose results it must equal.
+    `reruns` keeps those re-runs by (beam, scorer) for the next request
+    with the same decoder."""
+    gpu.set_model_beam_width(beam)
+    if scorers is not None:
+        gpu.enable_external_scorer(scorers["alphabet"]["path"])
+        for word, boost in HOT_WORDS.items():
+            gpu.add_hot_word(word, boost)
+    try:
+        meta = request(name, audio_s, fn)
+        timed = requests[-1]
+        prof = profiled(name, audio_s, fn, {"k1_device_ms": RECURRENCE_KERNEL})[0]
+        key = (beam, scorers is not None)
+        if key not in reruns:
+            reruns[key] = {impl: decode_timed(emissions, gpu.alphabet, beam, impl, gpu.scorer,
+                                              gpu.hot_words or None)
+                           for impl in ("native", "python")}
+        rerun = reruns[key]
+    finally:
+        gpu.disable_external_scorer()
+        gpu.clear_hot_words()
+        gpu.set_model_beam_width(BEAM_WIDTH)
+    cand = meta.transcripts[0]
+    got = (cand.transcript, [gpu.alphabet.encode_single(t.text) for t in cand.tokens],
+           [t.timestep for t in cand.tokens])
+    for impl, (results, _) in rerun.items():
+        want = results[0]
+        if got != (want.transcript, want.tokens, want.timesteps) or not (
+                abs(cand.confidence - want.confidence) <= DECODER_CONF_TOL):
+            raise AssertionError(f"{name}: {cand} differs from the {impl} decoder's {want} "
+                                 "on the same emissions")
+    row = {"request": name, "beam": beam, "scorer": scorers is not None, "audio_s": audio_s,
+           "ms": timed["ms"], "rtf": timed["rtf"], "host_decode_ms": timed["host_decode_ms"],
+           "device_busy_ms": prof["device_busy_ms"], "device_idle_share": prof["device_idle_share"],
+           "profiled_wall_ms": prof["wall_ms"], "k1_device_ms": prof["k1_device_ms"],
+           "native_rerun_ms": rerun["native"][1], "python_rerun_ms": rerun["python"][1],
+           "transcript": cand.transcript}
+    print("host decoder", json.dumps(row), flush=True)
+    return row
+
+
+def serving_phase(device, seed: int, work_dir: str, scorers: dict) -> dict:
     from stt_tpu_torch.decode import ctc_beam_search_decoder
     from stt_tpu_torch.decode import device as decode_device
-    from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc
-    from stt_tpu_torch.models import DeepSpeech, ModelConfig
     from stt_tpu_torch.ops import beam_kernel
     from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence, lstm_recurrence_q
     from stt_tpu_torch.ops.lstm_train import lstm_train_bwd, lstm_train_fwd
     from stt_tpu_torch.ops.quant import apply_model_quantized, input_projection_q, qparams_to
     from stt_tpu_torch.serve import Model
 
-    alphabet = Alphabet().init_from_labels(LABELS)
-    config = ModelConfig(n_out=len(LABELS) + 1)  # the 2048 geometry
-    fc = FeatureConfig()
     t0 = time.time()
-    model = DeepSpeech(config, generator=torch.Generator().manual_seed(seed))
-    n_params = sum(p.numel() for p in model.parameters())
-    save_artifact(work_dir, model, build_metadata(config, fc, alphabet, beam_width=BEAM_WIDTH), alphabet)
-    del model
+    config, fc, alphabet, n_params = smoke_artifact(work_dir, seed)
     gpu = Model(work_dir)  # the card is the default device
     cpu = Model(work_dir, device="cpu")
     print(f"serving: {n_params} params, artifact saved and opened in {time.time() - t0:.1f} s", flush=True)
     assert gpu.device.type == "cuda" and gpu.beam_width == BEAM_WIDTH
 
-    rng = np.random.RandomState(seed)
     rate = fc.sample_rate
-    audios = [utterance(s, rate, rng) for s in (2.0, 3.3, 4.7)]
+    audios, batch, padded, lengths = serving_inputs(seed, fc, config.n_input)
     requests = []
+    time_host_decoders()
 
     counted = {"k1": lstm_recurrence, "k2": lstm_recurrence_q, "k3": lstm_train_fwd,
                "k4": lstm_train_bwd, "k5": beam_kernel.beam_scan}
@@ -987,10 +1307,12 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
             wrapper.launches = 0
         decode_device.scan.plain_scans = 0
         torch.cuda.synchronize()
+        HOST_DECODE["ms"] = 0.0
         start = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - start) * 1e3
+        host_decode_ms = HOST_DECODE["ms"]
         launches = {key: wrapper.launches for key, wrapper in counted.items()}
         for key, n in launches.items():
             if (n > 0) != (key in must):
@@ -998,7 +1320,7 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
         if decode_device.scan.plain_scans:
             raise AssertionError(f"request {name} ran the plain beam scan")
         rec = {"request": name, "audio_s": audio_s, "ms": ms, "rtf": ms / 1e3 / audio_s,
-               "k1_launches": launches["k1"], "launches": launches}
+               "k1_launches": launches["k1"], "launches": launches, "host_decode_ms": host_decode_ms}
         print("request", json.dumps(rec), flush=True)
         requests.append(rec)
         return result
@@ -1027,14 +1349,30 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
     partial, streamed = request("stream[320ms]", len(audios[2]) / rate, stream_request)
     assert streamed == texts[2], "streamed transcript differs from one-shot"
 
-    batch = [utterance(s, rate, rng) for s in rng.uniform(2.0, 5.0, size=16)]
-    feats = [audio_to_mfcc(torch.from_numpy(a), fc).numpy() for a in batch]
-    lengths = np.array([f.shape[0] for f in feats], np.int32)
-    padded = np.zeros((16, lengths.max(), config.n_input), np.float32)
-    for i, f in enumerate(feats):
-        padded[i, : len(f)] = f
     logits = request("infer_logits[B=16]", sum(len(a) for a in batch) / rate,
                      lambda: gpu.infer_logits(padded, lengths))
+
+    # ---- the host decoder: native, without and with a scorer -----------
+    _, emissions = gpu.stt_with_emissions(audios[2])
+
+    def host_stream_request():
+        stream = gpu.create_stream()
+        for off in range(0, len(audios[2]), piece):
+            stream.feed_audio_content(audios[2][off:off + piece])
+            stream.intermediate_decode()
+        return stream.finish_stream_with_metadata(1)
+
+    host_rows, reruns = [], {}
+    for name, fn, beam, lm in (
+        (f"stream[320ms, beam {BEAM_WIDTH}]", host_stream_request, BEAM_WIDTH, False),
+        ("stream[320ms, beam 500]", host_stream_request, 500, False),
+        ("stream[320ms, scorer + hot words, beam 500]", host_stream_request, 500, True),
+        ("stt_with_metadata[scorer + hot words, beam 500]",
+         lambda: gpu.stt_with_metadata(audios[2], 1), 500, True),
+    ):
+        host_rows.append(host_decoder_row(gpu, name, fn, beam, scorers if lm else None,
+                                          emissions, len(audios[2]) / rate, request, requests,
+                                          reruns))
 
     # ---- opt-in path B: decoding on the card ---------------------------
     def device_stream_request():
@@ -1046,7 +1384,6 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
         return partial, stream.finish_stream_with_metadata(3)
 
     gpu.create_stream(device_decode=True).feed_audio_content(audios[0])  # warm-up
-    _, emissions = gpu.stt_with_emissions(audios[2])
     em = torch.from_numpy(emissions).to(device)[None].contiguous()
     em_len = torch.tensor([em.shape[1]], dtype=torch.int32, device=device)
     device_equals_host = {}
@@ -1186,6 +1523,9 @@ def serving_phase(device, seed: int, work_dir: str) -> dict:
           f"{text_gpu == text_cpu}", flush=True)
     return {
         "profile": profile_request(gpu, audios[2], alphabet), "opt_in_profiles": profiles,
+        "host_decoder": host_rows,
+        "decoder_inputs": {"emissions": emissions, "probs16": probs16.cpu().numpy(),
+                           "lengths16": lengths, "audio_s16": sum(len(a) for a in batch) / rate},
         "k2_at_int8_request": k2_request,
         "int8_card_vs_cpu_max_abs_err": int8_err, "int8_card_vs_cpu_mean_abs_err": int8_mean_err,
         "int8_vs_float_max_abs_err": int8_float_err,
@@ -1425,6 +1765,20 @@ def training_phase(device, seed: int, work_dir: str) -> dict:
     return rec
 
 
+def build_native_decoder(out: dict) -> None:
+    """Build (g++) and load the port's native CTC decoder; records the
+    seconds it took and the library's path in `out`, or the error."""
+    from stt_tpu_torch.decode import native
+
+    start = time.time()
+    try:
+        native.library()
+    except RuntimeError as e:
+        out["error"] = str(e)
+        return
+    out.update(s=time.time() - start, library=os.path.relpath(native.LIBRARY, ROOT))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1433,8 +1787,9 @@ def main() -> int:
                         help="with --phases k5: also time K5 in turns against this version of "
                              "its source")
     parser.add_argument("--phases", default="",
-                        help="comma-separated kernel phases (k1, k2, k3k4, k5) to run alone, "
-                             "for work on a kernel: prints their records and no result line")
+                        help="comma-separated phases (k1, k2, k3k4, k5, decoder) to run alone, "
+                             "for work on a kernel or the host decoder: prints their records "
+                             "and no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1450,13 +1805,26 @@ def main() -> int:
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.time()
+    # the host decoder's g++ build runs beside the kernels' nvcc builds
+    native_build = {}
+    host = threading.Thread(target=build_native_decoder, args=(native_build,))
+    host.start()
     for name, report in _build.build().items():
         print(f"built {name}:\n{report}", flush=True)
-    print(f"build: {time.time() - t0:.1f} s", flush=True)
+    host.join()
+    if "error" in native_build:
+        raise RuntimeError(native_build["error"])
+    print(f"build: {time.time() - t0:.1f} s (native decoder {native_build['s']:.1f} s, "
+          f"{native_build['library']})", flush=True)
+    work_dir = os.path.join(ROOT, "build", "chip_smoke")
 
     if args.phases:
         alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase}
         for name in args.phases.split(","):
+            if name == "decoder":
+                decoder_phase(device, args.seed, build_scorers(os.path.join(work_dir, "lm"), args.seed),
+                              decoder_inputs(device, args.seed, os.path.join(work_dir, "model")))
+                continue
             records = alone[name](device, args.seed)
             if name == "k5":
                 k5_split(device, args.seed, records)
@@ -1470,8 +1838,9 @@ def main() -> int:
     k3k4 = train_kernel_phase(device, args.seed)
     k5 = k5_phase(device, args.seed)
     k5_phases = k5_split(device, args.seed, k5)
-    work_dir = os.path.join(ROOT, "build", "chip_smoke")
-    serving = serving_phase(device, args.seed, os.path.join(work_dir, "model"))
+    scorers = build_scorers(os.path.join(work_dir, "lm"), args.seed)
+    serving = serving_phase(device, args.seed, os.path.join(work_dir, "model"), scorers)
+    decoder = decoder_phase(device, args.seed, scorers, serving.pop("decoder_inputs"))
     training = training_phase(device, args.seed, os.path.join(work_dir, "train"))
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
@@ -1534,8 +1903,9 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4,
-                       "k5": k5, "k5_phases": k5_phases,
-                       "serving": serving, "training": training, "kernels": kernels},
+                       "k5": k5, "k5_phases": k5_phases, "native_build": native_build,
+                       "serving": serving, "decoder": decoder, "training": training,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {card}")

@@ -3,8 +3,10 @@
 The serving and training paths of `stt_tpu` in PyTorch, for an NVIDIA
 H100: artifact loading, the MFCC frontend, the DeepSpeech acoustic model
 whose LSTM recurrence runs in CUDA kernels written for Hopper (inference,
-and training forward and backward), CTC beam and greedy decoding, the CTC
-loss, streaming, the `Model`/`Stream` API, and the trainer. It imports
+and training forward and backward), CTC beam decoding (the native C++
+decoder on the host, with KenLM .scorer packages and hot words; or the
+beam kernel on the card) and greedy decoding, the CTC loss, streaming,
+the `Model`/`Stream` API, and the trainer. It imports
 nothing of `stt_tpu` and no JAX; the two packages share the artifact
 format, so one exported model loads in both.
 
@@ -18,7 +20,12 @@ Package layout:
   stt_tpu_torch.artifact   - weights.npz + metadata.json + alphabet.txt
   stt_tpu_torch.ctc        - greedy decode, CTC loss
   stt_tpu_torch.data       - WAV IO, CSV sources, padded batches
-  stt_tpu_torch.decode     - CTC prefix beam search, emission pruning
+  stt_tpu_torch.decode     - CTC prefix beam search (native and Python),
+                             .scorer packages, vocabulary tries, emission
+                             pruning, the beam search on the card
+  stt_tpu_torch.lm         - KenLM binary reader and writer, ARPA models
+  stt_tpu_torch.native     - the native decoder's C++ source
+  stt_tpu_torch.tools      - generate_scorer_package
   stt_tpu_torch.stream     - stateful streaming inference
   stt_tpu_torch.serve      - user-facing Model/Stream API
   stt_tpu_torch.train      - train/eval steps, checkpoints, the trainer

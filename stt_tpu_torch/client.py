@@ -15,8 +15,9 @@ modes:
 Usage:
   python -m stt_tpu_torch.client --model export/ --audio a.wav
 
---scorer and --hot_words are accepted but exit with an error: the scorer
-and hot words are not ported yet. --device cpu runs on the CPU.
+--scorer decodes with a .scorer package (--lm_alpha and --lm_beta, both
+given, replace its alpha and beta); --hot_words takes word:boost,... .
+--device cpu runs on the CPU.
 """
 
 from __future__ import annotations
@@ -79,6 +80,19 @@ def metadata_to_extended(transcript) -> str:
             f"{token.text!r}"
         )
     return "\n".join(lines)
+
+
+def parse_hot_words(spec: str):
+    """Parse the reference's ``word:boost,word:boost`` syntax."""
+    pairs = []
+    for item in spec.split(","):
+        if not item:
+            continue
+        word, _, boost = item.rpartition(":")
+        if not word:
+            raise ValueError(f"bad hot-word entry {item!r}, want word:boost")
+        pairs.append((word, float(boost)))
+    return pairs
 
 
 AUDIO_EXTENSIONS = (".wav",)
@@ -144,21 +158,22 @@ def main(argv=None) -> int:
 
         print(f"stt_tpu_torch {__version__}")
         return 0
-    for flag in ("scorer", "hot_words", "lm_alpha", "lm_beta"):
-        if getattr(args, flag) is not None:
-            print(
-                f"--{flag} is not ported to stt_tpu_torch yet (ROADMAP.md, "
-                "slice P2: native decoder + KenLM scorer + trie + hot words)",
-                file=sys.stderr,
-            )
-            return 2
-
     from stt_tpu_torch.data.audio import read_wav
     from stt_tpu_torch.serve import Model
 
     model = Model(args.model, device=args.device)
     if args.beam_width:
         model.set_model_beam_width(args.beam_width)
+    if args.scorer:
+        model.enable_external_scorer(args.scorer)
+        if args.lm_alpha is not None and args.lm_beta is not None:
+            model.set_scorer_alpha_beta(args.lm_alpha, args.lm_beta)
+    elif args.lm_alpha is not None or args.lm_beta is not None:
+        print("--lm_alpha/--lm_beta require --scorer", file=sys.stderr)
+        return 2
+    if args.hot_words:
+        for word, boost in parse_hot_words(args.hot_words):
+            model.add_hot_word(word, boost)
 
     rate = model.sample_rate()
     for path in resolve_audio_paths(args.audio):

@@ -29,7 +29,6 @@ NOT_PORTED = {
     "cache_for_epochs": (0, "P6, feature cache"),
     "graph_augs_on_device": (False, "M12, on-device augmentation"),
     "profile_dir": ("", "P6, profiler traces"),
-    "scorer_path": ("", "P2, KenLM scorer"),
     "export_dir": ("", "M9, export"),
     "export_zip": (False, "M9, export"),
     "export_quantize": (False, "M9, export"),

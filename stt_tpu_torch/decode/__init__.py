@@ -2,14 +2,18 @@ from stt_tpu_torch.decode.beam import (
     DecodeResult,
     DecoderState,
     ctc_beam_search_decoder,
+    ctc_beam_search_decoder_batch,
     make_decoder_state,
 )
 from stt_tpu_torch.decode.scorer import ScorerBase
+from stt_tpu_torch.decode.trie import DictionaryTrie
 
 __all__ = [
     "DecodeResult",
     "DecoderState",
+    "DictionaryTrie",
     "ScorerBase",
     "ctc_beam_search_decoder",
+    "ctc_beam_search_decoder_batch",
     "make_decoder_state",
 ]

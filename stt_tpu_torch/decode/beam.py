@@ -22,15 +22,17 @@ path_trie.cpp) — the WER gates depend on its subtle semantics:
   when a higher-probability path claims the prefix (path_trie.cpp:159-190).
 - decode() rescoring of the trailing partial word (cpp:288-301).
 
-A copy of the Python decoder of stt_tpu/decode/beam.py. The native C++
-decoder and the KenLM scorer are a later slice of the port.
+A copy of the Python decoder of stt_tpu/decode/beam.py, and its factory:
+`make_decoder_state` takes the native C++ decoder (decode/native.py) by
+default, as stt_tpu does, but never falls back to this module's.
 """
 
 from __future__ import annotations
 
 import math
 from collections import namedtuple
-from typing import Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -495,12 +497,6 @@ class DecoderState:
         return results
 
 
-NOT_PORTED = (
-    "{} is not ported to stt_tpu_torch yet (ROADMAP.md, slice P2: native "
-    "decoder + KenLM scorer + trie + hot words)"
-)
-
-
 def make_decoder_state(
     alphabet: Alphabet,
     beam_size: int,
@@ -510,15 +506,35 @@ def make_decoder_state(
     hot_words: Optional[Dict[str, float]] = None,
     implementation: str = "auto",
 ):
-    """DecoderState factory. implementation: 'auto' | 'python' | 'native';
-    this slice has the Python decoder only, so 'auto' is 'python', and
-    'native' or a scorer raise NotImplementedError."""
-    if implementation == "native":
-        raise NotImplementedError(NOT_PORTED.format("the native decoder"))
-    if implementation not in ("auto", "python"):
+    """DecoderState factory. implementation: 'auto' | 'python' | 'native'.
+
+    'auto' takes the native (C++) decoder unless the scorer has no file
+    path (a StaticScorer, a package loaded from a buffer), which only the
+    Python decoder takes. Unlike stt_tpu, 'auto' never falls back to the
+    Python decoder when the native library cannot be built: that raises
+    RuntimeError with the compiler's message."""
+    if implementation not in ("auto", "python", "native"):
         raise ValueError(f"unknown decoder implementation {implementation!r}")
-    if scorer is not None:
-        raise NotImplementedError(NOT_PORTED.format("the external scorer"))
+    if implementation != "python":
+        scorer_path = getattr(scorer, "path", None)
+        if scorer is None or scorer_path is not None:
+            from stt_tpu_torch.decode import native
+
+            return native.NativeDecoderState(
+                alphabet,
+                beam_size,
+                cutoff_prob,
+                cutoff_top_n,
+                scorer_path=scorer_path,
+                alpha=scorer.alpha if scorer is not None else None,
+                beta=scorer.beta if scorer is not None else None,
+                hot_words=hot_words,
+            )
+        if implementation == "native":
+            raise RuntimeError(
+                "the native decoder reads its scorer from a file, and this "
+                "scorer has no path"
+            )
     return DecoderState(
         alphabet, beam_size, cutoff_prob, cutoff_top_n, scorer, hot_words
     )
@@ -542,3 +558,36 @@ def ctc_beam_search_decoder(
     )
     state.next(probs)
     return state.decode(num_results)
+
+
+def ctc_beam_search_decoder_batch(
+    probs_batch: Sequence[np.ndarray],
+    seq_lengths: Sequence[int],
+    alphabet: Alphabet,
+    beam_size: int,
+    num_processes: int = 1,
+    cutoff_prob: float = 1.0,
+    cutoff_top_n: int = 40,
+    scorer: Optional[ScorerBase] = None,
+    hot_words: Optional[Dict[str, float]] = None,
+    num_results: int = 1,
+    implementation: str = "auto",
+) -> List[List[DecodeResult]]:
+    """Decode a batch of utterances (parallel fan-out like the reference's
+    ThreadPool wrapper, cpp:608-702). With the native decoder, worker
+    threads run truly concurrently: ctypes releases the GIL around each
+    call into the library."""
+    items = [
+        np.asarray(p)[: int(n)] for p, n in zip(probs_batch, seq_lengths)
+    ]
+
+    def one(p):
+        return ctc_beam_search_decoder(
+            p, alphabet, beam_size, cutoff_prob, cutoff_top_n, scorer,
+            hot_words, num_results, implementation,
+        )
+
+    if num_processes <= 1 or len(items) <= 1:
+        return [one(p) for p in items]
+    with ThreadPoolExecutor(max_workers=num_processes) as pool:
+        return list(pool.map(one, items))

@@ -20,8 +20,11 @@ kernel (K1) and never the training kernels. With quantized_inference=True
 `infer_logits` takes the int8 path (`stt_tpu_torch.ops.quant`, whose
 recurrence is the int8 kernel K2); `create_stream(device_decode=True)`
 decodes on the model's device (`stt_tpu_torch.decode.device`, the beam
-kernel K5). The external scorer is not ported yet and raises
-NotImplementedError.
+kernel K5). Every other stream decodes on the host in the native C++
+decoder (`stt_tpu_torch.decode.native`), with the external scorer (a
+.scorer package: KenLM model and vocabulary) and hot words when they are
+set; a scorer loaded from a buffer has no file for the C++ decoder to read
+and takes the Python decoder.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from stt_tpu_torch.artifact import (
     model_config_from_metadata,
     params_from_numpy,
 )
-from stt_tpu_torch.decode.beam import NOT_PORTED, DecodeResult
+from stt_tpu_torch.decode.beam import DecodeResult
+from stt_tpu_torch.decode.scorer import ScorerBase
 from stt_tpu_torch.device import resolve_device
 from stt_tpu_torch.stream.streaming import StreamingRuntime, StreamState
 
@@ -91,7 +95,7 @@ class Model:
         self._beam_width = int(metadata.get("beam_width", 500))
         self._cutoff_prob = 1.0
         self._cutoff_top_n = 40
-        self.scorer = None
+        self.scorer: Optional[ScorerBase] = None
         self.hot_words: Dict[str, float] = {}
 
     # -- config surface ----------------------------------------------------
@@ -107,16 +111,24 @@ class Model:
         self._beam_width = int(width)
 
     def enable_external_scorer(self, scorer_path: str) -> None:
-        raise NotImplementedError(NOT_PORTED.format("the external scorer"))
+        """Decode with the .scorer package at `scorer_path`, at the alpha
+        and beta stored in it."""
+        from stt_tpu_torch.decode.scorer_package import KenLMScorer
+
+        self.scorer = KenLMScorer(scorer_path)
 
     def enable_external_scorer_from_buffer(self, data: bytes) -> None:
-        raise NotImplementedError(NOT_PORTED.format("the external scorer"))
+        from stt_tpu_torch.decode.scorer_package import KenLMScorer
+
+        self.scorer = KenLMScorer(data=data)
 
     def disable_external_scorer(self) -> None:
         self.scorer = None
 
     def set_scorer_alpha_beta(self, alpha: float, beta: float) -> None:
-        raise RuntimeError("no scorer enabled")
+        if self.scorer is None:
+            raise RuntimeError("no scorer enabled")
+        self.scorer.reset_params(alpha, beta)
 
     def add_hot_word(self, word: str, boost: float) -> None:
         self.hot_words[word] = float(boost)

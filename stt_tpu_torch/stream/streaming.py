@@ -20,8 +20,9 @@ StreamingState, stt.cc:32-59,105-334):
 
 Every chunk takes one path: MFCC of the new audio, context windowing, the
 acoustic step (whose LSTM recurrence runs in the Hopper kernel on CUDA)
-and softmax, then the decoder: the host decoder on the probabilities (or
-the pruned emissions) pulled to the host, or with device_decode the beam
+and softmax, then the decoder: the host decoder (the native C++ one unless
+the scorer has no file) on the probabilities, or on the pruned emissions
+through `next_pruned`, pulled to the host; or with device_decode the beam
 scan on the model's device, which pulls nothing until a decode. The JAX
 package's split into a fused steady-state program and a generic one only
 saved TPU dispatches.

@@ -14,6 +14,7 @@ counterpart of `stt_tpu.train.trainer`, on one device).
   reloaded and the learning rate (Adam's param_groups) shrinks by
   `plateau_reduction`.
 - Scalars go to `summary_dir/scalars.jsonl`.
+- Pre-flight: the alphabet resolves and `scorer_path`'s package loads.
 
 The step runs on the card unless the caller passes device="cpu".
 """
@@ -67,8 +68,19 @@ def make_summary_writer(summary_dir: str) -> Optional[Callable[[int, dict], None
     return write
 
 
+def early_training_checks(config: SttConfig) -> None:
+    """Pre-flight validation (train.py:238-246): the alphabet resolves and
+    the scorer package, if one is named, loads."""
+    config.resolve_alphabet()
+    if config.scorer_path:
+        from stt_tpu_torch.decode.scorer_package import KenLMScorer
+
+        KenLMScorer(config.scorer_path)  # raises on an invalid package
+
+
 def train(config: SttConfig, device="cuda") -> TrainState:
     device = resolve_device(device)
+    early_training_checks(config)
     alphabet = config.resolve_alphabet()
     model_config = config.model_config(training=True)
     feature_config = config.feature_config

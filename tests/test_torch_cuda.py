@@ -668,3 +668,54 @@ def test_shapes_beyond_the_beam_kernel_raise_on_the_card(device):
     with pytest.raises(ValueError, match="on the card"):
         decode_device.device_beam_search(torch.full((1, 4, 256), 1 / 256, device=device), [4], 16)
     assert decode_device.scan.plain_scans == before
+
+
+# --- the native decoder with a scorer, behind the card's model ------------
+
+LM_WORDS = "the of and to in is was he for it with water dark suit greasy wash year all".split()
+
+
+def test_stream_with_scorer_on_card_matches_cpu(device, tmp_path):
+    """A Stream on the card, decoded on the host by the native decoder with
+    a scorer (built here by the port's own tools) and hot words, gives the
+    transcript the same Stream gives with device="cpu"."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.artifact import build_metadata, save_artifact
+    from stt_tpu_torch.decode.native import NativeDecoderState
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.lm.arpa import estimate_kneser_ney, write_arpa
+    from stt_tpu_torch.serve import Model
+    from stt_tpu_torch.tools.generate_scorer_package import create_package
+
+    labels = list(" abcdefghijklmnopqrstuvwxyz'")
+    rs = np.random.RandomState(0)
+    sentences = [list(rs.choice(LM_WORDS, size=rs.randint(3, 9))) for _ in range(300)]
+    (tmp_path / "alphabet.txt").write_text("".join(f"{c}\n" for c in labels))
+    (tmp_path / "vocab.txt").write_text("\n".join(sorted(set(LM_WORDS))) + "\n")
+    write_arpa(estimate_kneser_ney(sentences), str(tmp_path / "lm.arpa"))
+    scorer = create_package(str(tmp_path / "alphabet.txt"), str(tmp_path / "lm.arpa"),
+                            str(tmp_path / "vocab.txt"), str(tmp_path / "lm.scorer"), 0.93, 1.18)
+    config = ModelConfig(n_hidden=64, n_cell_dim=128, n_out=len(labels) + 1)
+    net = DeepSpeech(config, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # peaky emissions: card and CPU cannot tip a near-tie
+        net.param("layer_6/w").mul_(20.0)
+        net.param("layer_6/b").copy_(torch.from_numpy(rs.randn(len(labels) + 1) * 3))
+        net.param("layer_6/b")[-1] = -2.0  # and not all blank
+    alphabet = Alphabet().init_from_labels(labels)
+    path = save_artifact(str(tmp_path / "m"), net,
+                         build_metadata(config, FeatureConfig(), alphabet, beam_width=32), alphabet)
+    audio = np.random.RandomState(1).uniform(-0.3, 0.3, 40000).astype(np.float32)
+    texts = {}
+    for where in ("cuda", "cpu"):
+        model = Model(path, device=where)
+        model.enable_external_scorer(scorer)
+        model.add_hot_word("water", 3.0)
+        stream = model.create_stream()
+        assert isinstance(stream._state.decoder, NativeDecoderState)
+        for start in range(0, len(audio), 5120):
+            stream.feed_audio_content(audio[start:start + 5120])
+        texts[where] = stream.finish_stream_with_metadata(2)
+    got, want = texts["cuda"], texts["cpu"]
+    assert [c.transcript for c in got.transcripts] == [c.transcript for c in want.transcripts]
+    assert got.transcripts[0].transcript
+    assert set(got.transcripts[0].transcript.split()) <= set(LM_WORDS)

@@ -1,7 +1,13 @@
 """The port's decoders against the JAX package's on the same seeded
-probabilities: the Python beam decoder (results equal, confidences too,
-since both run the same float64 host arithmetic), emission pruning in its
-three cutoff modes, and greedy decoding.
+probabilities: the Python beam decoder and the native one, each against
+its counterpart (results equal, confidences too, since both run the same
+float64 host arithmetic), emission pruning in its three cutoff modes, and
+greedy decoding.
+
+The probabilities hold an exact tie of two classes. There the native and
+the Python decoder may keep different prefixes (in both packages), so
+each is held against its own counterpart here; tests/test_torch_native_decoder.py
+holds the four against one another on inputs without ties.
 
 Pruning: indices, counts and blank probabilities are equal. logp is equal
 to within one float32 ulp: numpy's float32 log is not correctly rounded,
@@ -17,11 +23,14 @@ import torch
 from stt_tpu.alphabet import Alphabet as JaxAlphabet
 from stt_tpu.ctc import greedy_decode as jax_greedy_decode
 from stt_tpu.decode.beam import DecoderState as JaxDecoderState
+from stt_tpu.decode.beam import make_decoder_state as jax_make_decoder_state
 from stt_tpu.decode.device import prune_emissions_host as jax_prune_host
 from stt_tpu_torch.alphabet import Alphabet
 from stt_tpu_torch.ctc import greedy_decode
 from stt_tpu_torch.decode import make_decoder_state
 from stt_tpu_torch.decode.device import prune_emissions, prune_emissions_host
+from stt_tpu_torch.decode.beam import DecoderState
+from stt_tpu_torch.decode.native import NativeDecoderState
 from stt_tpu_torch.decode.scorer import ScorerBase
 
 LABELS = list(" abcdefghijklmnopqrstuvwxyz'")
@@ -44,12 +53,32 @@ def results(decoder, n):
             for r in decoder.decode(n)]
 
 
-@pytest.mark.parametrize("beam,cutoff", [(8, (40, 1.0)), (16, (10, 0.9)), (16, (10, 1.0))])
+BEAM_CASES = [(8, (40, 1.0)), (16, (10, 0.9)), (16, (10, 1.0))]
+
+
+@pytest.mark.parametrize("beam,cutoff", BEAM_CASES)
 def test_beam_decoder_matches_jax(beam, cutoff):
     top_n, prob = cutoff
     probs = seeded_probs(beam + top_n)
-    ours = make_decoder_state(Alphabet().init_from_labels(LABELS), beam, prob, top_n)
+    ours = make_decoder_state(Alphabet().init_from_labels(LABELS), beam, prob, top_n,
+                              implementation="python")
     theirs = JaxDecoderState(JaxAlphabet().init_from_labels(LABELS), beam, prob, top_n)
+    for start in range(0, len(probs), 16):  # streamed, with decodes between
+        ours.next(probs[start:start + 16])
+        theirs.next(probs[start:start + 16])
+        assert results(ours, 1) == results(theirs, 1)
+    got, want = results(ours, 4), results(theirs, 4)
+    assert len(got) == 4 and got == want
+
+
+@pytest.mark.parametrize("beam,cutoff", BEAM_CASES)
+def test_native_beam_decoder_matches_jax_native(beam, cutoff):
+    top_n, prob = cutoff
+    probs = seeded_probs(beam + top_n)
+    ours = make_decoder_state(Alphabet().init_from_labels(LABELS), beam, prob, top_n)
+    assert isinstance(ours, NativeDecoderState)  # the default
+    theirs = jax_make_decoder_state(JaxAlphabet().init_from_labels(LABELS), beam, prob, top_n,
+                                    implementation="native")
     for start in range(0, len(probs), 16):  # streamed, with decodes between
         ours.next(probs[start:start + 16])
         theirs.next(probs[start:start + 16])
@@ -98,8 +127,16 @@ def test_greedy_matches_jax():
 
 
 def test_unported_decoder_options_raise():
+    """What replaced the refusal of 'native' and of scorers: 'native' and
+    'auto' take the C++ decoder; a scorer without a file (here a bare
+    ScorerBase) takes the Python decoder under 'auto' and raises under
+    'native'; an unknown implementation raises."""
     alphabet = Alphabet().init_from_labels(LABELS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decoder_state(alphabet, 8, implementation="native")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decoder_state(alphabet, 8, scorer=ScorerBase())
+    assert isinstance(make_decoder_state(alphabet, 8, implementation="native"), NativeDecoderState)
+    assert isinstance(make_decoder_state(alphabet, 8), NativeDecoderState)
+    assert type(make_decoder_state(alphabet, 8, implementation="python")) is DecoderState
+    assert type(make_decoder_state(alphabet, 8, scorer=ScorerBase())) is DecoderState
+    with pytest.raises(RuntimeError, match="no path"):
+        make_decoder_state(alphabet, 8, scorer=ScorerBase(), implementation="native")
+    with pytest.raises(ValueError, match="unknown"):
+        make_decoder_state(alphabet, 8, implementation="cuda")

@@ -29,10 +29,13 @@ from stt_tpu.ops import beam_kernel as jax_beam_kernel
 from stt_tpu.serve import Model as JaxModel
 from stt_tpu_torch.alphabet import Alphabet
 from stt_tpu_torch.decode import ctc_beam_search_decoder, device
+from stt_tpu_torch.decode.beam import DecoderState
+from stt_tpu_torch.decode.native import NativeDecoderState
 from stt_tpu_torch.decode.scorer import ScorerBase
 from stt_tpu_torch.ops import beam_kernel
 from stt_tpu_torch.serve import Model
 from stt_tpu_torch.stream.streaming import StreamState
+from test_torch_scorer import build_package
 
 SCORE_TOL = 1e-4
 LABELS = [" ", "a", "b", "c"]
@@ -394,21 +397,25 @@ def test_model_device_decode_stream_against_stt_tpu(artifact, pallas_interpret):
     assert [c.transcript for c in meta.transcripts] == [r.transcript for r in batch]
 
 
-def test_a_scorer_turns_device_decode_off(artifact):
+def test_a_scorer_turns_device_decode_off(artifact, tmp_path):
+    """The beam kernel decodes without a language model, so a stream with a
+    scorer decodes on the host, in the native decoder, even when asked for
+    device_decode."""
     model = Model(artifact, device="cpu")
     state = StreamState(model._runtime, beam_width=8, device_decode=True)
     assert state.device_decode and isinstance(state.decoder, device.DeviceStreamingDecoder)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # the scorer itself is not ported
-        StreamState(model._runtime, beam_width=8, device_decode=True, scorer=ScorerBase())
-    # ... but the flag is decided before the decoder is made
-    class Probe(StreamState):
-        def __init__(self, *args, **kwargs):
-            try:
-                super().__init__(*args, **kwargs)
-            except NotImplementedError:
-                pass
-    probe = Probe(model._runtime, beam_width=8, device_decode=True, scorer=ScorerBase())
-    assert probe.device_decode is False
+    model.enable_external_scorer(build_package(tmp_path, "lm.scorer"))
+    with_scorer = StreamState(model._runtime, beam_width=8, device_decode=True,
+                              scorer=model.scorer)
+    assert with_scorer.device_decode is False
+    assert isinstance(with_scorer.decoder, NativeDecoderState)
+    stream = model.create_stream(device_decode=True)
+    assert not stream._state.device_decode
+    stream.feed_audio_content(speech_like(4, 1.0))
+    assert isinstance(stream.finish_stream(), str)
+    # a scorer without a file takes the Python decoder, still on the host
+    probe = StreamState(model._runtime, beam_width=8, device_decode=True, scorer=ScorerBase())
+    assert probe.device_decode is False and type(probe.decoder) is DecoderState
     # stt_with_emissions keeps forcing it off: the emissions reach the host
     _, probs = model.stt_with_emissions(speech_like(3, 1.0))
     assert probs.shape[0] > 0

@@ -37,10 +37,16 @@ def test_every_module_imports_without_jax_or_stt_tpu():
         opt_in = {"stt_tpu_torch.ops.quant", "stt_tpu_torch.ops.beam_kernel",
                   "stt_tpu_torch.decode.device"}
         assert opt_in <= set(names), opt_in - set(names)
+        lm = {"stt_tpu_torch.decode.native", "stt_tpu_torch.decode.scorer_package",
+              "stt_tpu_torch.decode.fst_dict", "stt_tpu_torch.decode.fst_writer",
+              "stt_tpu_torch.decode.trie", "stt_tpu_torch.lm.kenlm", "stt_tpu_torch.lm.murmur",
+              "stt_tpu_torch.lm.arpa", "stt_tpu_torch.lm.trie_writer",
+              "stt_tpu_torch.tools.generate_scorer_package"}
+        assert lm <= set(names), lm - set(names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 31
+    assert int(proc.stdout.strip()) >= 43
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():
@@ -59,6 +65,27 @@ def test_no_import_statement_names_jax_or_stt_tpu():
                 continue
             for mod in mods:
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "stt_tpu"), (path, mod)
+
+
+def test_native_decoder_builds_under_build_native_and_loads_nothing_of_stt_tpu():
+    """The C++ decoder is the port's own copy, built into build/native/ at
+    the root of the checkout; nothing under stt_tpu/ is read or loaded."""
+    proc = run("""
+        import sys
+        from pathlib import Path
+        from stt_tpu_torch.decode import native
+        root = Path.cwd().resolve()
+        assert native.SOURCE == root / "stt_tpu_torch" / "native" / "ctc_decoder.cpp", native.SOURCE
+        assert native.LIBRARY == root / "build" / "native" / "libstt_decoder.so", native.LIBRARY
+        native.library()
+        maps = Path("/proc/self/maps").read_text()
+        assert str(native.LIBRARY) in maps
+        assert str(root / "stt_tpu") + "/" not in maps, "a library under stt_tpu/ is loaded"
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "stt_tpu")]
+    """)
+    assert proc.returncode == 0, proc.stderr
+    with open(os.path.join(ROOT, "stt_tpu_torch", "decode", "native.py")) as f:
+        assert "stt_tpu/native" not in f.read()
 
 
 def test_model_defaults_to_cuda_and_raises_without_it(tmp_path):

@@ -16,6 +16,7 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import torch
 
 from stt_tpu.alphabet import Alphabet as JaxAlphabet
 from stt_tpu.artifact import build_metadata, load_artifact as jax_load_artifact
@@ -130,6 +131,47 @@ def test_device_prune_stream_matches(models):
     assert pruned.finish_stream() == plain.finish_stream()
 
 
+def test_pruned_stream_feeds_the_native_decoder_through_next_pruned(models, monkeypatch):
+    """With device pruning a stream hands the native decoder the pruned
+    emissions (int32 indices and counts, float32 logps and blank
+    probabilities, [T, K] and [T]) through next_pruned, and decodes what
+    the Python decoder decodes from the same arrays."""
+    from stt_tpu_torch.decode import make_decoder_state
+    from stt_tpu_torch.decode.device import prune_emissions
+    from stt_tpu_torch.decode.native import NativeDecoderState
+
+    _, model = models
+    audio = speech_like(5, 1.9)
+    seen = []
+    original = NativeDecoderState.next_pruned
+
+    def spy(self, indices, logps, counts, blank_probs):
+        seen.append((indices.dtype, logps.dtype, counts.dtype, blank_probs.dtype,
+                     indices.shape[1:], logps.shape == indices.shape,
+                     counts.shape == blank_probs.shape == indices.shape[:1]))
+        return original(self, indices, logps, counts, blank_probs)
+
+    monkeypatch.setattr(NativeDecoderState, "next_pruned", spy)
+    model._cutoff_prob, model._cutoff_top_n = 0.95, 8  # auto pruning turns on
+    try:
+        stream = model.create_stream()
+        assert stream._state.device_prune
+        assert isinstance(stream._state.decoder, NativeDecoderState)
+        stream.feed_audio_content(audio)
+        got = stream.finish_stream_with_metadata(2)
+    finally:
+        model._cutoff_prob, model._cutoff_top_n = 1.0, 40
+    i32, f32 = np.dtype(np.int32), np.dtype(np.float32)
+    assert seen and set(seen) == {(i32, f32, i32, f32, (8,), True, True)}
+    _, probs = model.stt_with_emissions(audio)
+    python = make_decoder_state(model.alphabet, BEAM, 0.95, 8, implementation="python")
+    python.next_pruned(*(a.numpy() for a in prune_emissions(torch.from_numpy(probs), 8, 0.95)))
+    for cand, want in zip(got.transcripts, python.decode(2)):
+        assert cand.transcript == want.transcript
+        assert [t.timestep for t in cand.tokens] == want.timesteps
+        assert cand.confidence == pytest.approx(want.confidence, abs=1e-6)
+
+
 def test_infer_logits_batch(models):
     jax_model, model = models
     feats = [np.asarray(jax_audio_to_mfcc(jnp.asarray(speech_like(10 + i, s))))
@@ -143,10 +185,22 @@ def test_infer_logits_batch(models):
     np.testing.assert_allclose(got, want, rtol=0, atol=LOGITS_TOL)
 
 
-def test_unported_surfaces_raise(artifacts, models):
-    _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.enable_external_scorer("lm.scorer")
+def test_unported_surfaces_raise(artifacts, models, tmp_path):
+    """The external scorer is ported: what raises now is what raises in
+    stt_tpu, a missing or invalid package and alpha/beta without a scorer."""
+    jax_model, model = models
+    bad = tmp_path / "bad.scorer"
+    bad.write_bytes(b"not a scorer package" * 8)
+    for m in (model, jax_model):
+        with pytest.raises(FileNotFoundError):
+            m.enable_external_scorer(str(tmp_path / "missing.scorer"))
+        with pytest.raises(ValueError, match="KenLM"):
+            m.enable_external_scorer(str(bad))
+        with pytest.raises(ValueError, match="KenLM"):
+            m.enable_external_scorer_from_buffer(bad.read_bytes())
+        assert m.scorer is None
+        with pytest.raises(RuntimeError, match="no scorer"):
+            m.set_scorer_alpha_beta(1.0, 2.0)
 
 
 def test_quantized_inference_model_routes_logits_through_int8(artifacts, models):
@@ -203,9 +257,11 @@ def test_client_json_and_unported_flags(artifacts, tmp_path, capsys):
                         "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert len(out["transcripts"]) == 3
+    # the scorer flags are ported; alpha and beta without a scorer are
+    # refused as by stt_tpu's client
     assert client.main(["--model", artifacts["plain"], "--audio", wav,
-                        "--scorer", "lm.scorer", "--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+                        "--lm_alpha", "1.0", "--lm_beta", "2.0", "--device", "cpu"]) == 2
+    assert "--lm_alpha/--lm_beta require --scorer" in capsys.readouterr().err
     assert os.path.exists(wav)
 
 
@@ -233,3 +289,116 @@ def test_serving_takes_the_inference_route(models, monkeypatch):
     logits = port.infer_logits(np.zeros((2, 20, 26), np.float32), [20, 11])
     assert not logits.requires_grad
     assert len(calls) >= 2
+
+
+HOT_WORDS = {"water": 3.0, "the": -1.0}
+CONF_TOL = 1e-4  # scores summed over emissions that differ by up to PROBS_TOL
+
+
+@pytest.fixture(scope="module")
+def lm_setup(tmp_path_factory):
+    """A model whose emissions are peaky (the two packages' probabilities
+    then cannot order near-equal beams differently) and a scorer package
+    built in the test."""
+    from test_torch_scorer import build_package
+
+    alphabet = JaxAlphabet().init_from_labels(LABELS)
+    config = JaxModelConfig(n_hidden=64, n_cell_dim=64, n_out=len(LABELS) + 1,
+                            dropout_rates=(0.0,) * 6)
+    params = jax.device_get(init_params(jax.random.PRNGKey(3), config))
+    params["layer_6"]["b"] = (np.random.RandomState(1).randn(len(LABELS) + 1) * 3).astype(np.float32)
+    params["layer_6"]["w"] = params["layer_6"]["w"] * 20.0
+    root = tmp_path_factory.mktemp("lm_serve")
+    meta = build_metadata(config, JaxFeatureConfig(), alphabet, beam_width=BEAM)
+    path = save_artifact(str(root / "m"), params, meta, alphabet)
+    return path, build_package(root, "lm.scorer")
+
+
+def candidates(meta) -> list:
+    return [(c.transcript, [t.timestep for t in c.tokens], [t.text for t in c.tokens],
+             c.confidence) for c in meta.transcripts]
+
+
+def assert_same(got: list, want: list) -> None:
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[:3] == w[:3]
+        assert g[3] == pytest.approx(w[3], abs=CONF_TOL)
+
+
+def test_scorer_and_hot_words_match_stt_tpu(lm_setup):
+    """enable_external_scorer, hot words, set_scorer_alpha_beta and
+    enable_external_scorer_from_buffer, then stt, stt_with_metadata and a
+    stream fed in pieces: the port's Model gives stt_tpu's."""
+    from stt_tpu_torch.decode.native import NativeDecoderState
+    from stt_tpu_torch.decode.scorer_package import KenLMScorer
+
+    artifact, scorer_path = lm_setup
+    jax_model, model = JaxModel(artifact), Model(artifact, device="cpu")
+    audio = [speech_like(20 + i, s) for i, s in enumerate((1.3, 2.1))]
+    plain = [model.stt(a) for a in audio]
+    for m in (jax_model, model):
+        m.enable_external_scorer(scorer_path)
+        for word, boost in HOT_WORDS.items():
+            m.add_hot_word(word, boost)
+    assert isinstance(model.scorer, KenLMScorer) and model.scorer.path == scorer_path
+    assert (model.scorer.alpha, model.scorer.beta) == (0.93, 1.18)  # the package's own
+    assert isinstance(model.create_stream()._state.decoder, NativeDecoderState)
+
+    def answers(m):
+        texts = [m.stt(a) for a in audio]
+        metas = [candidates(m.stt_with_metadata(a, 3)) for a in audio]
+        stream, partial = m.create_stream(), []
+        for start in range(0, len(audio[1]), 2777):
+            stream.feed_audio_content(audio[1][start:start + 2777])
+            partial.append(stream.intermediate_decode())
+        return texts, metas, partial, candidates(stream.finish_stream_with_metadata(2))
+
+    for step in ("package values", "alpha/beta set", "from a buffer"):
+        if step == "alpha/beta set":
+            for m in (jax_model, model):
+                m.set_scorer_alpha_beta(2.5, -0.5)
+        elif step == "from a buffer":
+            with open(scorer_path, "rb") as f:
+                data = f.read()
+            for m in (jax_model, model):
+                m.enable_external_scorer_from_buffer(data)
+            assert model.scorer.path is None
+        texts, metas, partial, streamed = answers(model)
+        want_texts, want_metas, want_partial, want_streamed = answers(jax_model)
+        assert texts == want_texts and partial == want_partial, step
+        for got, want in zip(metas, want_metas):
+            assert_same(got, want)
+        assert_same(streamed, want_streamed)
+        assert texts[1] == streamed[0][0]
+    assert texts != plain and all(texts)  # the language model reached the transcripts
+
+
+def test_client_with_scorer_matches_stt_tpu(lm_setup, tmp_path, capsys):
+    """python -m stt_tpu_torch.client --scorer ... --hot_words ... --json
+    against stt_tpu's client on the same WAV."""
+    import subprocess
+    import sys
+
+    from stt_tpu import client as jax_client
+
+    artifact, scorer_path = lm_setup
+    wav = str(tmp_path / "a.wav")
+    write_wav(wav, speech_like(30, 1.8))
+    args = ["--model", artifact, "--audio", wav, "--scorer", scorer_path, "--hot_words",
+            "water:3.0,the:-1.0", "--lm_alpha", "1.5", "--lm_beta", "0.5", "--json",
+            "--candidate_transcripts", "2"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "stt_tpu_torch.client", *args, "--device", "cpu"],
+                          cwd=root, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": root})
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout)
+    capsys.readouterr()
+    assert jax_client.main(args) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert len(got["transcripts"]) == len(want["transcripts"]) == 2
+    for g, w in zip(got["transcripts"], want["transcripts"]):
+        assert g["words"] == w["words"]
+        assert g["confidence"] == pytest.approx(w["confidence"], abs=CONF_TOL)
+    assert client.parse_hot_words("a:1,b:c:-2.5,") == [("a", 1.0), ("b:c", -2.5)]

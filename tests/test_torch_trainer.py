@@ -227,7 +227,6 @@ def test_flags_parse_like_the_jax_package():
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["--scorer_path", "x.scorer"], "P2"),
     (["--augment", "volume"], "P6"),
     (["--feature_cache", "/tmp/c"], "P6"),
     (["--export_dir", "/tmp/e"], "M9"),
@@ -238,6 +237,34 @@ def test_flags_parse_like_the_jax_package():
 def test_flags_of_unported_parts_raise(argv, where):
     with pytest.raises(NotImplementedError, match=where):
         parse_flags(argv)
+
+
+def test_scorer_path_passes_preflight_or_raises(tmp_path):
+    """--scorer_path is ported: the flag parses, the pre-flight loads a
+    valid package and raises on an invalid one, as stt_tpu's does."""
+    from stt_tpu.train.trainer import early_training_checks as jax_early_training_checks
+    from stt_tpu_torch.train.trainer import early_training_checks
+    from test_torch_scorer import build_package, write_inputs
+
+    alphabet = write_inputs(tmp_path)["alphabet"]
+    good = build_package(tmp_path, "lm.scorer")
+    bad = str(tmp_path / "bad.scorer")
+    with open(bad, "wb") as f:
+        f.write(b"\0" * 256)
+    for path in (good, bad):
+        argv = ["--scorer_path", path, "--alphabet_config_path", alphabet]
+        config, jax_config = parse_flags(argv), jax_parse_flags(argv)
+        assert config.scorer_path == jax_config.scorer_path == path
+        if path == good:
+            early_training_checks(config)
+            jax_early_training_checks(jax_config)
+        else:
+            with pytest.raises(ValueError, match="KenLM"):
+                early_training_checks(config)
+            with pytest.raises(ValueError, match="KenLM"):
+                jax_early_training_checks(jax_config)
+            with pytest.raises(ValueError, match="KenLM"):
+                train(config, device="cpu")  # before any step
 
 
 def test_train_module_runs_on_the_cpu_when_asked(dataset):
