@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of stt_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4,decoder]
+    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4,decoder,evaluation]
 
 1. Setup: prints the card's name and power limit, turns TF32 off, builds
    every CUDA kernel of the package from its sources (build/kernels/), one
@@ -77,8 +77,25 @@
    card against the same step on the CPU (B = 2, dropout 0), the train
    step's time at B = 16, and where one profiled step's device time goes
    (it must show one K3 and one K4 kernel on the card).
-5. Prints one JSON line listing every kernel, the card's name and power
-   limit, and as the last line {"ok": true, "device": {...}}.
+4b. Evaluation phase, on the training phase's checkpoint and dev CSV (8
+   utterances) through the port's entry points: `evaluate(config)` at
+   test_batch_size 8 and export_beam_width 500 with the decode modes off,
+   prune and full, prune with the word scorer, and prune with
+   cutoff_top_n 10 (the chunked prune, copied into pinned memory): off,
+   prune and full must agree (exact ties between classes counted beside
+   the hold), K1 must launch at least once a batch, K5 in full and only
+   there, the cutoff run must equal a host-pruned decode of the same
+   probabilities; then where evaluate's time goes (forward, CTC loss,
+   softmax, each decode mode's audio-s/s, the chunked prune against one
+   bulk fetch). `export(config)` float, --export_zip and --export_quantize,
+   the .sttpkg answering as the directory; `transcribe_file` on a 30 s
+   seeded recording with the float export (K1) and the int8 one under
+   quantized_inference=True (K2); `evaluate_export` on the dev CSV. No
+   training kernel may launch. `--phases evaluation` runs the training
+   phase first, for its checkpoint.
+5. Prints one JSON line listing every kernel (launches counted over the
+   serving, training and evaluation phases' runs), the card's name and
+   power limit, and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
 and prints no result. --out writes the full record as JSON.
@@ -1276,12 +1293,44 @@ def host_decoder_row(gpu, name: str, fn, beam: int, scorers, emissions, audio_s:
     return row
 
 
-def serving_phase(device, seed: int, work_dir: str, scorers: dict) -> dict:
-    from stt_tpu_torch.decode import ctc_beam_search_decoder
-    from stt_tpu_torch.decode import device as decode_device
+def counted_wrappers() -> dict:
+    """Each kernel's wrapper, whose `launches` counts the kernel's launches."""
     from stt_tpu_torch.ops import beam_kernel
     from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence, lstm_recurrence_q
     from stt_tpu_torch.ops.lstm_train import lstm_train_bwd, lstm_train_fwd
+
+    return {"k1": lstm_recurrence, "k2": lstm_recurrence_q, "k3": lstm_train_fwd,
+            "k4": lstm_train_bwd, "k5": beam_kernel.beam_scan}
+
+
+def run_counted(name: str, fn, must: tuple) -> tuple:
+    """fn() with every launch count set to 0 just before it and read just
+    after, timed on the host between synchronizes: it must launch each
+    kernel in `must` and none of the others, and no plain beam scan.
+    Returns (fn's result, its wall ms, its launches by kernel)."""
+    from stt_tpu_torch.decode import device as decode_device
+
+    wrappers = counted_wrappers()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    decode_device.scan.plain_scans = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    launches = {key: wrapper.launches for key, wrapper in wrappers.items()}
+    for key, n in launches.items():
+        if (n > 0) != (key in must):
+            raise AssertionError(f"{name}: {key} launched {n} times, must launch: {must}")
+    if decode_device.scan.plain_scans:
+        raise AssertionError(f"{name} ran the plain beam scan")
+    return result, ms, launches
+
+
+def serving_phase(device, seed: int, work_dir: str, scorers: dict) -> dict:
+    from stt_tpu_torch.decode import ctc_beam_search_decoder
+    from stt_tpu_torch.decode import device as decode_device
     from stt_tpu_torch.ops.quant import apply_model_quantized, input_projection_q, qparams_to
     from stt_tpu_torch.serve import Model
 
@@ -1297,30 +1346,14 @@ def serving_phase(device, seed: int, work_dir: str, scorers: dict) -> dict:
     requests = []
     time_host_decoders()
 
-    counted = {"k1": lstm_recurrence, "k2": lstm_recurrence_q, "k3": lstm_train_fwd,
-               "k4": lstm_train_bwd, "k5": beam_kernel.beam_scan}
-
     def request(name: str, audio_s: float, fn, must=("k1",)):
         """Run one request with every launch count set to 0 just before it:
         it must launch each kernel in `must` and none of the others."""
-        for wrapper in counted.values():
-            wrapper.launches = 0
-        decode_device.scan.plain_scans = 0
-        torch.cuda.synchronize()
         HOST_DECODE["ms"] = 0.0
-        start = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - start) * 1e3
-        host_decode_ms = HOST_DECODE["ms"]
-        launches = {key: wrapper.launches for key, wrapper in counted.items()}
-        for key, n in launches.items():
-            if (n > 0) != (key in must):
-                raise AssertionError(f"request {name}: {key} launched {n} times, must launch: {must}")
-        if decode_device.scan.plain_scans:
-            raise AssertionError(f"request {name} ran the plain beam scan")
+        result, ms, launches = run_counted(f"request {name}", fn, must)
         rec = {"request": name, "audio_s": audio_s, "ms": ms, "rtf": ms / 1e3 / audio_s,
-               "k1_launches": launches["k1"], "launches": launches, "host_decode_ms": host_decode_ms}
+               "k1_launches": launches["k1"], "launches": launches,
+               "host_decode_ms": HOST_DECODE["ms"]}
         print("request", json.dumps(rec), flush=True)
         requests.append(rec)
         return result
@@ -1762,7 +1795,262 @@ def training_phase(device, seed: int, work_dir: str) -> dict:
 
     small, _ = next(create_batches([paths["train"]], alphabet, fc, batch_size=2, limit=2))
     rec["card_vs_cpu"] = card_vs_cpu_step(device, seed, small)
+    rec["paths"] = {**paths, "checkpoints": ckpt}
     return rec
+
+
+EVAL_CASES = (  # (name, SttConfig fields) of the evaluation phase's evaluate runs
+    ("off", {"device_decode": "off"}),
+    ("prune", {"device_decode": "prune"}),
+    ("full", {"device_decode": "full"}),
+    ("prune, scorer", {"device_decode": "prune", "scorer_path": True}),
+    ("prune, cutoff_top_n 10", {"device_decode": "prune", "cutoff_top_n": 10}),
+)
+EVAL_REPS = 3  # timed repetitions of each decode in the evaluation phase's split
+
+
+def long_recording(seconds: float, rate: int, rng: np.random.RandomState) -> tuple:
+    """Seeded utterance() pieces of 1.5-4 s with 0.5-1.5 s of quiet between
+    them, to `seconds`: (audio, the pieces' (start, end) in seconds)."""
+    audio, spans, t = [], [], 0.0
+    while t < seconds - 2.0:
+        gap = rng.uniform(0.5, 1.5)
+        piece = utterance(min(rng.uniform(1.5, 4.0), seconds - t - gap), rate, rng)
+        audio += [1e-3 * rng.randn(int(gap * rate)).astype(np.float32), piece]
+        spans.append((t + gap, t + gap + len(piece) / rate))
+        t = sum(len(a) for a in audio) / rate
+    audio.append(1e-3 * rng.randn(int((seconds - t) * rate)).astype(np.float32))
+    return np.concatenate(audio), spans
+
+
+def evaluation_split(device, model, config, batches, alphabet, scorer, card: str) -> tuple:
+    """Where evaluate's time goes, on the same batches: the forward (K1), the
+    CTC loss and the softmax, each timed after a synchronize, then each decode mode's decode (`decode_batch`, as evaluate
+    calls it) from probabilities on the card, EVAL_REPS times; and the
+    chunked prune with pinned copies (cutoff_top_n 10) against one bulk fetch
+    of the same probabilities pruned on the host. Returns (the record, each
+    batch's (probabilities on the card, lengths))."""
+    import dataclasses
+
+    from stt_tpu_torch.ctc import ctc_loss
+    from stt_tpu_torch.decode.device import ctc_beam_search_decoder_batch_pruned
+    from stt_tpu_torch.evaluate import decode_batch
+
+    fc = config.feature_config
+    marks = {"forward_ms": 0.0, "ctc_loss_ms": 0.0, "softmax_ms": 0.0}
+    probs_list = []
+    with torch.no_grad():
+        for batch, _ in batches:
+            batch = batch.to(device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model(batch.features, seq_len=batch.feature_lengths)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ctc_loss(logits, batch.feature_lengths, batch.labels, batch.label_lengths)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            probs = torch.softmax(logits, dim=-1)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            marks["forward_ms"] += (t1 - t0) * 1e3
+            marks["ctc_loss_ms"] += (t2 - t1) * 1e3
+            marks["softmax_ms"] += (t3 - t2) * 1e3
+            probs_list.append((probs, batch.feature_lengths.tolist()))
+    audio_s = sum(sum(n) for _, n in probs_list) * fc.step_samples / fc.sample_rate
+    decode = {}
+    for name, fields in EVAL_CASES:
+        fields = dict(fields, scorer_path="")
+        cfg = dataclasses.replace(config, **fields)
+        times = []
+        for _ in range(EVAL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for probs, lengths in probs_list:
+                decode_batch(cfg, probs, lengths, alphabet,
+                             scorer if name == "prune, scorer" else None)
+            times.append(time.perf_counter() - t0)
+        decode[name] = {"ms": min(times) * 1e3, "reps_ms": [t * 1e3 for t in times],
+                        "audio_s_per_s": audio_s / min(times)}
+    pulls = {"chunked_pinned_ms": [], "bulk_fetch_ms": []}
+    for _ in range(EVAL_REPS):
+        for key in pulls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for probs, lengths in probs_list:
+                src = probs if key == "chunked_pinned_ms" else probs.cpu().numpy()
+                ctc_beam_search_decoder_batch_pruned(
+                    src, lengths, alphabet, config.export_beam_width,
+                    num_processes=max(1, min(config.test_batch_size, os.cpu_count() or 1)),
+                    cutoff_top_n=10)
+            pulls[key].append((time.perf_counter() - t0) * 1e3)
+    rec = {**marks, "audio_s": audio_s, "frames": [int(p.shape[1]) for p, _ in probs_list],
+           "decode": decode, "chunked_vs_bulk": {k: min(v) for k, v in pulls.items()},
+           "chunked_vs_bulk_reps": pulls, "gpu": card}
+    print("evaluate_split", json.dumps(rec), flush=True)
+    return rec, probs_list
+
+
+def evaluation_phase(device, seed: int, work_dir: str, paths: dict, scorers: dict,
+                     card: str) -> dict:
+    """Evaluate, export and transcribe the training phase's full-width
+    checkpoint through the port's entry points, on the card:
+    - `evaluate(config)` on the dev CSV (8 utterances, test_batch_size 8,
+      export_beam_width 500) with the decode modes off, prune and full, prune
+      with the word scorer, and prune with cutoff_top_n 10 (the chunked prune
+      with pinned copies): off, prune and full must give one transcript and
+      WER, K1 must launch in every run (at least once a batch), K5 in full
+      and only there, no training kernel; the cutoff_top_n 10 run must equal
+      a host-pruned decode of the same probabilities; then `evaluation_split`;
+    - `export(config)` float, --export_zip and --export_quantize: the
+      .sttpkg's Model answers as the directory's;
+    - `transcribe_file` on a 30 s seeded recording, VAD-split, with the float
+      export (K1) and the int8 one under quantized_inference=True (K2, not
+      K1), no training kernel;
+    - `evaluate_export` on the dev CSV (K1)."""
+    import dataclasses
+
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.data import write_wav
+    from stt_tpu_torch.data.feeding import create_batches
+    from stt_tpu_torch.decode.device import ctc_beam_search_decoder_batch_pruned
+    from stt_tpu_torch.decode.scorer_package import KenLMScorer
+    from stt_tpu_torch.evaluate import decode_batch, evaluate, load_model
+    from stt_tpu_torch.evaluate_export import evaluate_export
+    from stt_tpu_torch.export import export
+    from stt_tpu_torch.serve import Model
+    from stt_tpu_torch.transcribe import transcribe_file
+
+    out_dir = os.path.join(work_dir, "evaluation")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    config = SttConfig(
+        test_files=[paths["dev"]], alphabet_config_path=paths["alphabet"], n_hidden=2048,
+        test_batch_size=8, export_beam_width=500, checkpoint_dir=paths["checkpoints"],
+        seed=seed,
+    )
+    alphabet = Alphabet(paths["alphabet"])
+    totals, runs = {}, []
+
+    def counted(name: str, fn, must: tuple) -> tuple:
+        result, ms, launches = run_counted(name, fn, must)
+        for key, n in launches.items():
+            totals[key] = totals.get(key, 0) + n
+        return result, {"run": name, "wall_ms": ms, "launches": launches, "gpu": card}
+
+    start = time.perf_counter()
+    model = load_model(config, device)
+    load_ms = (time.perf_counter() - start) * 1e3
+    batches = list(create_batches([paths["dev"]], alphabet, config.feature_config,
+                                  batch_size=config.test_batch_size))
+    n_batches = len(batches)
+    evaluate(dataclasses.replace(config, device_decode="off"), model=model)  # warm-up
+    results = {}
+    for name, fields in EVAL_CASES:
+        if fields.get("scorer_path"):
+            fields = dict(fields, scorer_path=scorers["alphabet"]["path"])
+        cfg = dataclasses.replace(config, test_output_file=os.path.join(
+            out_dir, name.replace(" ", "").replace(",", "_") + ".json"), **fields)
+        must = ("k1", "k5") if name == "full" else ("k1",)
+        [res], rec = counted(f"evaluate[{name}]", lambda: evaluate(cfg, model=model), must)
+        if rec["launches"]["k1"] < n_batches:
+            raise AssertionError(f"evaluate[{name}]: K1 launched {rec['launches']['k1']} times "
+                                 f"for {n_batches} batches")
+        rec.update(transcripts=[r.res for r in res], wer=[r.wer for r in res],
+                   mean_loss=float(np.mean([r.loss for r in res])))
+        print("evaluate", json.dumps(rec), flush=True)
+        results[name] = res
+        runs.append(rec)
+    scorer = KenLMScorer(scorers["alphabet"]["path"], alpha=config.lm_alpha, beta=config.lm_beta)
+    split, probs = evaluation_split(device, model, config, batches, alphabet, scorer, card)
+    del model
+    # the three decodes agree; exact ties between two classes in a frame of
+    # the probabilities (where decoders may order candidates differently)
+    # are counted beside the hold
+    ties = 0
+    for p, lengths in probs:
+        rows = p.cpu().numpy()
+        ties += sum(int(len(np.unique(row)) < len(row))
+                    for i, n in enumerate(lengths) for row in rows[i, :n])
+    # checks that fail are raised at the end of the phase, so that one run
+    # shows every one of them
+    failures = []
+    agree = {name: [(r.res, r.wer) for r in results[name]] for name in ("off", "prune", "full")}
+    print(f"evaluation: off == prune == full: {agree['off'] == agree['prune'] == agree['full']} "
+          f"({ties} tied frames)", flush=True)
+    if not agree["off"] == agree["prune"] == agree["full"]:
+        differ = [i for i, (a, b, c) in enumerate(zip(*agree.values())) if not a == b == c]
+        scores = {}
+        for name, fields in EVAL_CASES[:3]:
+            cfg = dataclasses.replace(config, **fields)
+            decoded = [r for p, lengths in probs for r in decode_batch(cfg, p, lengths, alphabet)]
+            scores[name] = [decoded[i][0].confidence for i in differ]
+        failures.append(f"evaluate's decode modes disagree on utterances {differ} ({ties} tied "
+                        f"frames; best scores by mode {scores}): {agree}")
+    host = [r[0].transcript for p, lengths in probs for r in ctc_beam_search_decoder_batch_pruned(
+        p.cpu().numpy(), lengths, alphabet, config.export_beam_width, num_processes=8,
+        cutoff_top_n=10)]
+    if host != [r.res for r in results["prune, cutoff_top_n 10"]]:
+        failures.append("evaluate with cutoff_top_n 10 (chunked, pruned on the card) differs "
+                        "from the host-pruned decode of the same probabilities")
+
+    # ---- export: float, --export_zip, --export_quantize --------------------
+    exports = {}
+    for name, fields in (("float", {}), ("zip", {"export_zip": True}),
+                         ("int8", {"export_quantize": True})):
+        cfg = dataclasses.replace(config, export_dir=os.path.join(out_dir, f"export_{name}"),
+                                  **fields)
+        exports[name], rec = counted(f"export[{name}]", lambda: export(cfg), ())
+        rec["bytes"] = (os.path.getsize(exports[name]) if os.path.isfile(exports[name]) else
+                        sum(os.path.getsize(os.path.join(exports[name], f))
+                            for f in os.listdir(exports[name])))
+        print("export", json.dumps(rec), flush=True)
+        runs.append(rec)
+    if not exports["zip"].endswith(".sttpkg"):
+        raise AssertionError(f"--export_zip wrote {exports['zip']}")
+    rng = np.random.RandomState(seed + 2)
+    fc = config.feature_config
+    probe = utterance(2.5, fc.sample_rate, rng)
+    float_model, zip_model = Model(exports["float"]), Model(exports["zip"])
+    feats = batches[0][0].features[:2]
+    lengths = batches[0][0].feature_lengths[:2]
+    if not (float_model.stt(probe) == zip_model.stt(probe) and torch.equal(
+            float_model.infer_logits(feats, lengths), zip_model.infer_logits(feats, lengths))):
+        failures.append("Model(.sttpkg) answers otherwise than Model(dir)")
+    del zip_model
+
+    # ---- transcribe: a 30 s recording, float (K1) and int8 (K2) -------------
+    audio, spans = long_recording(30.0, fc.sample_rate, rng)
+    wav = os.path.join(out_dir, "long.wav")
+    write_wav(wav, audio, fc.sample_rate)
+    int8_model = Model(exports["int8"], quantized_inference=True)
+    transcribe_file(float_model, wav)  # warm-up
+    for name, gpu_model, must in (("float", float_model, ("k1",)), ("int8", int8_model, ("k2",))):
+        segments, rec = counted(f"transcribe_file[{name}]",
+                                lambda: transcribe_file(gpu_model, wav), must)
+        rec.update(audio_s=len(audio) / fc.sample_rate, pieces=len(spans),
+                   segments=len(segments),
+                   audio_s_per_s=len(audio) / fc.sample_rate / (rec["wall_ms"] / 1e3),
+                   transcripts=[s["transcript"] for s in segments])
+        print("transcribe", json.dumps(rec), flush=True)
+        if len(segments) < 2:
+            failures.append(f"VAD cut the {len(spans)}-piece recording into {segments}")
+        runs.append(rec)
+    del int8_model, float_model
+
+    # ---- evaluate_export on the dev CSV (K1) ---------------------------------
+    report, rec = counted("evaluate_export",
+                          lambda: evaluate_export(exports["float"], paths["dev"]), ("k1",))
+    rec.update(wer=float(np.mean([r.wer for r in report])), samples=len(report))
+    print("evaluate_export", json.dumps(rec), flush=True)
+    runs.append(rec)
+    if len(report) != 8:
+        failures.append(f"evaluate_export scored {len(report)} of 8 samples")
+    if failures:
+        raise AssertionError("evaluation phase: " + "; ".join(failures))
+    return {"load_ms": load_ms, "runs": runs, "split": split, "tied_frames": ties,
+            "launches": totals, "gpu": card}
 
 
 def build_native_decoder(out: dict) -> None:
@@ -1787,7 +2075,8 @@ def main() -> int:
                         help="with --phases k5: also time K5 in turns against this version of "
                              "its source")
     parser.add_argument("--phases", default="",
-                        help="comma-separated phases (k1, k2, k3k4, k5, decoder) to run alone, "
+                        help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation) to "
+                             "run alone (evaluation trains its checkpoint first), "
                              "for work on a kernel or the host decoder: prints their records "
                              "and no result line")
     args = parser.parse_args()
@@ -1825,6 +2114,12 @@ def main() -> int:
                 decoder_phase(device, args.seed, build_scorers(os.path.join(work_dir, "lm"), args.seed),
                               decoder_inputs(device, args.seed, os.path.join(work_dir, "model")))
                 continue
+            if name == "evaluation":  # on the checkpoint the training phase makes
+                scorers = build_scorers(os.path.join(work_dir, "lm"), args.seed)
+                training = training_phase(device, args.seed, os.path.join(work_dir, "train"))
+                evaluation_phase(device, args.seed, os.path.join(work_dir, "train"),
+                                 training["paths"], scorers, card)
+                continue
             records = alone[name](device, args.seed)
             if name == "k5":
                 k5_split(device, args.seed, records)
@@ -1842,6 +2137,8 @@ def main() -> int:
     serving = serving_phase(device, args.seed, os.path.join(work_dir, "model"), scorers)
     decoder = decoder_phase(device, args.seed, scorers, serving.pop("decoder_inputs"))
     training = training_phase(device, args.seed, os.path.join(work_dir, "train"))
+    evaluation = evaluation_phase(device, args.seed, os.path.join(work_dir, "train"),
+                                  training["paths"], scorers, card)
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
     main_shape = next(r for r in k1 if (r["dtype"], r["B"], r["T"]) == ("float32", 1, 16))
@@ -1850,7 +2147,8 @@ def main() -> int:
         "route": "cuda",
         "source": "stt_tpu_torch/ops/csrc/lstm_recurrence.cu",
         "replaces": "stt_tpu/ops/lstm_kernel.py:44",
-        "launches": sum(r["k1_launches"] for r in serving["requests"]),
+        "launches": (sum(r["k1_launches"] for r in serving["requests"])
+                     + evaluation["launches"]["k1"]),
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -1891,7 +2189,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"stt_tpu_torch/ops/csrc/{source}",
             "replaces": replaces,
-            "launches": sum(r["launches"][key] for r in serving["requests"]),
+            "launches": (sum(r["launches"][key] for r in serving["requests"])
+                         + evaluation["launches"][key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -1905,6 +2204,7 @@ def main() -> int:
             json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4,
                        "k5": k5, "k5_phases": k5_phases, "native_build": native_build,
                        "serving": serving, "decoder": decoder, "training": training,
+                       "evaluation": evaluation,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

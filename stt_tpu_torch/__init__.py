@@ -6,7 +6,8 @@ whose LSTM recurrence runs in CUDA kernels written for Hopper (inference,
 and training forward and backward), CTC beam decoding (the native C++
 decoder on the host, with KenLM .scorer packages and hot words; or the
 beam kernel on the card) and greedy decoding, the CTC loss, streaming,
-the `Model`/`Stream` API, and the trainer. It imports
+the `Model`/`Stream` API, the trainer, and evaluation, export and
+transcription of long recordings. It imports
 nothing of `stt_tpu` and no JAX; the two packages share the artifact
 format, so one exported model loads in both.
 
@@ -19,7 +20,7 @@ Package layout:
   stt_tpu_torch.ops        - CUDA kernels (csrc/) and their wrappers
   stt_tpu_torch.artifact   - weights.npz + metadata.json + alphabet.txt
   stt_tpu_torch.ctc        - greedy decode, CTC loss
-  stt_tpu_torch.data       - WAV IO, CSV sources, padded batches
+  stt_tpu_torch.data       - WAV IO, CSV sources, padded batches, VAD
   stt_tpu_torch.decode     - CTC prefix beam search (native and Python),
                              .scorer packages, vocabulary tries, emission
                              pruning, the beam search on the card
@@ -30,6 +31,11 @@ Package layout:
   stt_tpu_torch.serve      - user-facing Model/Stream API
   stt_tpu_torch.train      - train/eval steps, checkpoints, the trainer
   stt_tpu_torch.client     - `stt`-style command line client
+  stt_tpu_torch.evaluate   - test-set WER/CER of a checkpoint (with
+                             evaluate_tools, text, evaluate_from_csv)
+  stt_tpu_torch.export     - checkpoint -> artifact, .sttpkg, model card
+  stt_tpu_torch.transcribe - VAD-segmented transcription to .tlog files
+  stt_tpu_torch.evaluate_export - WER/CER of an exported artifact
 """
 
 __version__ = "0.1.0"

@@ -15,7 +15,7 @@ import io
 import json
 import os
 import zipfile
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from stt_tpu_torch.frontend import FeatureConfig
 from stt_tpu_torch.models import DeepSpeech, ModelConfig
 
 DENSE = ("layer_1", "layer_2", "layer_3", "layer_5", "layer_6")
+PACKAGE_EXT = ".sttpkg"
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
@@ -175,6 +176,17 @@ def save_artifact(
         else:
             f.write(alphabet.serialize_text())
     return out_dir
+
+
+def package_zip(artifact_dir: str, zip_path: Optional[str] = None) -> str:
+    """Bundle an artifact directory into one .sttpkg file, with the members
+    stt_tpu.artifact.package_zip writes."""
+    if zip_path is None:
+        zip_path = artifact_dir.rstrip("/") + PACKAGE_EXT
+    with zipfile.ZipFile(zip_path, "w", zipfile.ZIP_DEFLATED) as zf:
+        for name in ("weights.npz", "metadata.json", "alphabet.txt"):
+            zf.write(os.path.join(artifact_dir, name), name)
+    return zip_path
 
 
 def load_artifact(path: str) -> Tuple[Dict, dict, Alphabet]:

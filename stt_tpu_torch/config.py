@@ -29,20 +29,11 @@ NOT_PORTED = {
     "cache_for_epochs": (0, "P6, feature cache"),
     "graph_augs_on_device": (False, "M12, on-device augmentation"),
     "profile_dir": ("", "P6, profiler traces"),
-    "export_dir": ("", "M9, export"),
-    "export_zip": (False, "M9, export"),
-    "export_quantize": (False, "M9, export"),
-    "export_model_name": ("model", "M9, export"),
-    "export_author_id": ("", "M9, export"),
-    "export_model_version": ("0.0.1", "M9, export"),
-    "export_license": ("", "M9, export"),
-    "export_language": ("", "M9, export"),
-    "export_tflite": (False, "M9, export"),
-    "export_file_name": ("output_graph", "M9, export"),
-    "export_beam_width": (500, "M9, export"),
+    "export_tflite": (False, "M15, compat"),
     "coordinator_address": ("", "M13, parallelism"),
     "process_id": (-1, "M13, parallelism"),
 }
+DEVICE_DECODE_MODES = ("auto", "full", "prune", "off")  # stt_tpu's; auto = prune
 
 
 @dataclass
@@ -170,6 +161,11 @@ class SttConfig:
                 raise NotImplementedError(
                     f"--{name} is not ported to stt_tpu_torch yet (ROADMAP.md: {where})"
                 )
+        if self.device_decode not in DEVICE_DECODE_MODES:
+            raise ValueError(
+                f"--device_decode takes one of {', '.join(DEVICE_DECODE_MODES)}, "
+                f"got {self.device_decode!r}"
+            )
         if not self.fused_lstm:
             raise ValueError(
                 "--fused_lstm false selects the JAX package's lax.scan; stt_tpu_torch "

@@ -7,6 +7,9 @@
    computed on the probabilities' device, so only [T, K] (class, logp)
    pairs, the counts and the blank probability cross to the host.
    `DecoderState.next_pruned` consumes them.
+   `ctc_beam_search_decoder_batch_pruned` decodes a batch that way,
+   pruned in chunks packed into one plane each (`_prune_pack`), with or
+   without a scorer.
 
 2. `device_beam_search` / `DeviceStreamingDecoder`: the whole per-frame
    beam expansion and prune for the no-LM path on the probabilities'
@@ -44,13 +47,14 @@ promises no tie order).
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from stt_tpu_torch.alphabet import Alphabet
-from stt_tpu_torch.decode.beam import DecodeResult
+from stt_tpu_torch.decode.beam import DecodeResult, make_decoder_state
 from stt_tpu_torch.device import resolve_device
 
 _FLT_MIN = 1.1754944e-38  # NUM_FLT_MIN log floor, decoder_utils.h
@@ -133,6 +137,183 @@ def prune_emissions_host(
         count.astype(np.int32),
         np.ascontiguousarray(probs[..., -1]),
     )
+
+
+def _prune_pack(probs: torch.Tensor, cutoff_top_n: int, cutoff_prob: float) -> torch.Tensor:
+    """Emission pruning packed into one float32 plane [..., T, 2K+2] (idx,
+    logp, count, blank), so that a chunk crosses to the host in one copy.
+    Class indices and counts are below 2^24: float32 holds them exactly.
+    In identity mode (cutoff_prob 1, cutoff_top_n >= C: index order, every
+    class) only logp and blank cross, [..., T, C+1]."""
+    c = probs.shape[-1]
+    blank = probs[..., -1:]
+    if cutoff_prob >= 1.0 and cutoff_top_n >= c:
+        return torch.cat([torch.log(probs + _FLT_MIN), blank], dim=-1)
+    idx, logp, count = _prune_frame_sorted(probs, int(cutoff_top_n), float(cutoff_prob))
+    return torch.cat([idx.float(), logp, count.float()[..., None], blank], dim=-1)
+
+
+def unpack_pruned(packed: np.ndarray, identity: bool = False):
+    """Host unpack of a `_prune_pack` plane -> (idx, logp, count, blank)
+    (a copy of stt_tpu.decode.device.unpack_pruned).
+
+    identity: the pack was the logp+blank-only fast mode (no truncation);
+    candidate indices are index order and counts are the class count."""
+    if identity:
+        c = packed.shape[-1] - 1
+        logp = packed[..., :c]
+        blank = packed[..., c]
+        idx = np.broadcast_to(
+            np.arange(c, dtype=np.int32), logp.shape
+        )
+        count = np.full(logp.shape[:-1], c, np.int32)
+        return idx, logp, count, blank
+    k = (packed.shape[-1] - 2) // 2
+    idx = packed[..., :k].astype(np.int32)
+    logp = packed[..., k : 2 * k]
+    count = packed[..., 2 * k].astype(np.int32)
+    blank = packed[..., 2 * k + 1]
+    return idx, logp, count, blank
+
+
+PRUNE_CHUNK_FRAMES = 128  # frames per packed plane of the chunked path
+
+
+def _packed_chunks(probs: torch.Tensor, cutoff_top_n: int, cutoff_prob: float):
+    """Yield the host numpy plane of each PRUNE_CHUNK_FRAMES-frame chunk of
+    probs [B, T, C], pruned where the tensor lies. On CUDA each chunk's
+    prune and its copy into pinned memory (non_blocking, an event after
+    it) are all queued before the first plane is yielded, so chunk j + 1
+    is pruned and copied while the caller decodes chunk j."""
+    starts = range(0, probs.shape[1], PRUNE_CHUNK_FRAMES)
+    if not probs.is_cuda:
+        for t0 in starts:
+            yield _prune_pack(probs[:, t0 : t0 + PRUNE_CHUNK_FRAMES], cutoff_top_n,
+                              cutoff_prob).numpy()
+        return
+    pending = []
+    for t0 in starts:
+        chunk = _prune_pack(probs[:, t0 : t0 + PRUNE_CHUNK_FRAMES], cutoff_top_n, cutoff_prob)
+        host = torch.empty(chunk.shape, dtype=chunk.dtype, pin_memory=True)
+        host.copy_(chunk, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        pending.append((host, done))
+    for host, done in pending:
+        done.synchronize()
+        yield host.numpy()
+
+
+def ctc_beam_search_decoder_batch_pruned(
+    probs_batch,
+    seq_lengths: Sequence[int],
+    alphabet: Alphabet,
+    beam_size: int,
+    num_processes: int = 1,
+    cutoff_prob: float = 1.0,
+    cutoff_top_n: int = 40,
+    scorer=None,
+    hot_words=None,
+    num_results: int = 1,
+    implementation: str = "auto",
+) -> List[List[DecodeResult]]:
+    """Scorer-capable batch decode with emission pruning where the
+    probabilities lie (the counterpart of
+    stt_tpu.decode.device.ctc_beam_search_decoder_batch_pruned).
+
+    A 3-D tensor (the acoustic model's softmax, on its device) is pruned
+    there in PRUNE_CHUNK_FRAMES-frame chunks, each packed into one float32
+    plane (`_prune_pack`); on CUDA the planes are copied into pinned host
+    memory without blocking, so the host decodes chunk j while chunk j + 1
+    is copied. Where the packed plane would be no smaller than the
+    probabilities (cutoff_top_n + 2 >= C, as at the English alphabet's 29
+    classes with the default cutoff_top_n), the tensor is fetched in one
+    copy and pruned on the host instead, as stt_tpu does. Host arrays and
+    lists take `prune_emissions_host`.
+
+    The results equal ctc_beam_search_decoder_batch's; host work no longer
+    scales with the alphabet's size."""
+    lengths = [int(n) for n in seq_lengths]
+
+    def make_states(batch_size: int):
+        return [
+            make_decoder_state(
+                alphabet, beam_size, cutoff_prob, cutoff_top_n, scorer,
+                hot_words, implementation,
+            )
+            for _ in range(batch_size)
+        ]
+
+    on_device = isinstance(probs_batch, torch.Tensor) and probs_batch.dim() == 3
+    if on_device and cutoff_top_n + 2 >= probs_batch.shape[2]:
+        probs_batch = probs_batch.float().cpu().numpy()
+        on_device = False
+    if not on_device:
+        if getattr(probs_batch, "ndim", 0) == 3:
+            batch = np.asarray(probs_batch, np.float32)
+        else:
+            items = [np.asarray(p, np.float32) for p in probs_batch]
+            if not items:
+                return []
+            T = max(p.shape[0] for p in items)
+            C = items[0].shape[1]
+            batch = np.zeros((len(items), T, C), np.float32)
+            batch[..., -1] = 1.0
+            for i, p in enumerate(items):
+                batch[i, : p.shape[0]] = p
+        idx, logp, cnt, blank = prune_emissions_host(
+            batch, cutoff_top_n=cutoff_top_n, cutoff_prob=cutoff_prob
+        )
+        B = idx.shape[0]
+        states = make_states(B)
+
+        def one(i: int) -> List[DecodeResult]:
+            n = lengths[i]
+            states[i].next_pruned(
+                idx[i, :n], logp[i, :n], cnt[i, :n], blank[i, :n]
+            )
+            return states[i].decode(num_results)
+
+        if num_processes <= 1 or B <= 1:
+            return [one(i) for i in range(B)]
+        with ThreadPoolExecutor(max_workers=num_processes) as pool:
+            return list(pool.map(one, range(B)))
+
+    # ---- chunked prune where the tensor lies, copies beside the decode ----
+    B, _, C = probs_batch.shape
+    identity = cutoff_prob >= 1.0 and cutoff_top_n >= C
+    states = make_states(B)
+    pool = (
+        ThreadPoolExecutor(max_workers=num_processes)
+        if num_processes > 1 and B > 1
+        else None
+    )
+    try:
+        chunks = _packed_chunks(probs_batch.float(), int(cutoff_top_n), float(cutoff_prob))
+        for j, packed in enumerate(chunks):
+            idx, logp, cnt, blank = unpack_pruned(packed, identity=identity)
+            t0 = j * PRUNE_CHUNK_FRAMES
+
+            def feed(i: int, t0=t0):
+                n = min(lengths[i] - t0, idx.shape[1])
+                if n > 0:
+                    states[i].next_pruned(
+                        idx[i, :n], logp[i, :n], cnt[i, :n], blank[i, :n]
+                    )
+
+            if pool is not None:
+                list(pool.map(feed, range(B)))
+            else:
+                for i in range(B):
+                    feed(i)
+        if pool is not None:
+            return list(
+                pool.map(lambda s: s.decode(num_results), states)
+            )
+        return [s.decode(num_results) for s in states]
+    finally:
+        if pool is not None:
+            pool.shutdown()
 
 
 # --------------------------------------------------------------------------

@@ -171,9 +171,10 @@ class Model:
     def infer_logits(self, features, lengths) -> torch.Tensor:
         """Batched acoustic forward [B, T, n_mfcc] -> [B, T, n_out] f32
         logits on the model's device; through the int8 path when the model
-        was opened with quantized_inference=True."""
-        seq = torch.as_tensor(np.asarray(lengths), dtype=torch.int32).to(self.device)
-        feats = torch.as_tensor(np.asarray(features), dtype=torch.float32).to(self.device)
+        was opened with quantized_inference=True. Features and lengths may
+        be host arrays or tensors (on any device)."""
+        seq = torch.as_tensor(lengths, dtype=torch.int32).to(self.device)
+        feats = torch.as_tensor(features, dtype=torch.float32).to(self.device)
         if self._qparams is not None:
             from stt_tpu_torch.ops.quant import apply_model_quantized
 

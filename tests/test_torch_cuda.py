@@ -719,3 +719,140 @@ def test_stream_with_scorer_on_card_matches_cpu(device, tmp_path):
     assert [c.transcript for c in got.transcripts] == [c.transcript for c in want.transcripts]
     assert got.transcripts[0].transcript
     assert set(got.transcripts[0].transcript.split()) <= set(LM_WORDS)
+
+
+# --- evaluate, the chunked prune and transcribe on the card ---------------
+
+M9_LABELS = list(" abcdefghijklmnopqrstuvwxyz'")
+
+
+def m9_setup(tmp_path, n_out=len(M9_LABELS) + 1, bytes_mode=False):
+    """A tiny model with peaky emissions (so that card and CPU cannot tip a
+    near-tie), saved as an artifact, an alphabet file and a test CSV of
+    four seeded utterances."""
+    from stt_tpu_torch.alphabet import Alphabet, UTF8Alphabet
+    from stt_tpu_torch.artifact import build_metadata, save_artifact
+    from stt_tpu_torch.data.sources import CSVWriter, Sample
+    from stt_tpu_torch.frontend import FeatureConfig
+
+    rs = np.random.RandomState(0)
+    config = ModelConfig(n_hidden=64, n_cell_dim=64, n_out=n_out)
+    net = DeepSpeech(config, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net.param("layer_6/w").mul_(20.0)
+        net.param("layer_6/b").copy_(torch.from_numpy(rs.randn(n_out) * 3))
+        net.param("layer_6/b")[-1] = -2.0
+    (tmp_path / "alphabet.txt").write_text("".join(f"{c}\n" for c in M9_LABELS))
+    alphabet = UTF8Alphabet() if bytes_mode else Alphabet(str(tmp_path / "alphabet.txt"))
+    path = save_artifact(str(tmp_path / "m"), net,
+                         build_metadata(config, FeatureConfig(), alphabet, beam_width=32), alphabet)
+    csv = str(tmp_path / "test.csv")
+    with CSVWriter(csv) as writer:
+        for i in range(4):
+            audio = rs.uniform(-0.3, 0.3, int(rs.uniform(0.8, 2.0) * 16000)).astype(np.float32)
+            writer.add(Sample(f"u{i}", "".join(rs.choice(M9_LABELS[1:], 6)), _audio=audio,
+                              _rate=16000))
+    return net, path, str(tmp_path / "alphabet.txt"), csv
+
+
+def kernel_launches():
+    from stt_tpu_torch.ops import beam_kernel
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence_q
+
+    return {"k1": lstm_recurrence.launches, "k2": lstm_recurrence_q.launches,
+            "k3": lstm_train_fwd.launches, "k4": lstm_train_bwd.launches,
+            "k5": beam_kernel.beam_scan.launches}
+
+
+@pytest.mark.parametrize("mode", ["off", "prune", "full"])
+def test_evaluate_on_card_matches_cpu(device, tmp_path, mode):
+    """evaluate on the card: K1 in the eval step, K5 in full mode only, no
+    training kernel, no plain beam scan; transcripts and WER those of the
+    CPU, losses within 1e-4 relative (card and CPU sum in other orders)."""
+    import copy
+
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.decode import device as decode_device
+    from stt_tpu_torch.evaluate import evaluate
+
+    net, _, alphabet, csv = m9_setup(tmp_path)
+    config = SttConfig(test_files=[csv], alphabet_config_path=alphabet, n_hidden=64,
+                       test_batch_size=2, export_beam_width=32, device_decode=mode)
+    before, plain = kernel_launches(), decode_device.scan.plain_scans
+    [got] = evaluate(config, model=copy.deepcopy(net))
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    assert launches["k1"] >= 2 and launches["k2"] == launches["k3"] == launches["k4"] == 0
+    assert (launches["k5"] > 0) == (mode == "full")
+    assert decode_device.scan.plain_scans == plain
+    [want] = evaluate(config, model=net, device="cpu")
+    assert [(r.res, r.wer, r.cer) for r in got] == [(r.res, r.wer, r.cer) for r in want]
+    assert any(r.res for r in got)
+    np.testing.assert_allclose([r.loss for r in got], [r.loss for r in want], rtol=1e-4)
+
+
+def test_evaluate_full_in_bytes_mode_raises_on_card(device, tmp_path):
+    """K5 takes at most 127 classes: bytes mode's 256 raise on the card,
+    where stt_tpu runs its XLA scan (ROADMAP.md, section 3)."""
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.evaluate import evaluate
+
+    net, _, _, csv = m9_setup(tmp_path, n_out=256, bytes_mode=True)
+    config = SttConfig(test_files=[csv], bytes_output_mode=True, n_hidden=64,
+                       test_batch_size=2, export_beam_width=500, device_decode="full")
+    with pytest.raises(ValueError, match="on the card"):
+        evaluate(config, model=net)
+
+
+@pytest.mark.parametrize("cutoff_top_n,cutoff_prob", [(8, 0.99), (5, 1.0), (40, 1.0)])
+def test_batch_pruned_decoder_on_card_matches_host(device, cutoff_top_n, cutoff_prob):
+    """The chunked path (pruned on the card in 128-frame planes, copied into
+    pinned memory without blocking) and the bulk fetch (cutoff_top_n + 2 >=
+    C) give the host path's candidates; confidences within 1e-6 relative
+    (the card's float32 log against numpy's)."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.decode.device import ctc_beam_search_decoder_batch_pruned
+
+    rs = np.random.RandomState(cutoff_top_n)
+    logits = rs.randn(3, 300, len(M9_LABELS) + 1).astype(np.float32) * 3.0
+    probs = torch.softmax(torch.from_numpy(logits), -1).numpy()
+    alphabet = Alphabet().init_from_labels(M9_LABELS)
+    args = dict(beam_size=16, num_processes=3, cutoff_top_n=cutoff_top_n,
+                cutoff_prob=cutoff_prob, num_results=2)
+    lengths = [300, 200, 129]
+    got = ctc_beam_search_decoder_batch_pruned(torch.from_numpy(probs).to(device), lengths,
+                                               alphabet, **args)
+    want = ctc_beam_search_decoder_batch_pruned(probs, lengths, alphabet, **args)
+    key = lambda rs: [[(r.transcript, list(r.tokens), list(r.timesteps)) for r in x] for x in rs]
+    assert key(got) == key(want)
+    np.testing.assert_allclose([[r.confidence for r in x] for x in got],
+                               [[r.confidence for r in x] for x in want], rtol=1e-6)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_transcribe_on_card_matches_cpu(device, tmp_path, quantized):
+    """transcribe_file on the card: K1 (float) or K2 (int8), no training
+    kernel; the CPU's segments."""
+    from stt_tpu_torch.data import write_wav
+    from stt_tpu_torch.serve import Model
+    from stt_tpu_torch.transcribe import transcribe_file
+
+    _, path, _, _ = m9_setup(tmp_path)
+    rs = np.random.RandomState(3)
+    audio = rs.randn(6 * 16000).astype(np.float32) * 2e-3
+    for i0, i1 in ((4800, 22400), (32000, 49600), (64000, 88000)):
+        audio[i0:i1] += rs.uniform(-0.3, 0.3, i1 - i0).astype(np.float32)
+    wav = str(tmp_path / "long.wav")
+    write_wav(wav, audio)
+    before = kernel_launches()
+    got = transcribe_file(Model(path, quantized_inference=quantized), wav, batch_size=2,
+                          beam_width=32)
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    assert launches["k2" if quantized else "k1"] > 0
+    assert launches["k1" if quantized else "k2"] == launches["k3"] == launches["k4"] == 0
+    want = transcribe_file(Model(path, quantized_inference=quantized, device="cpu"), wav,
+                           batch_size=2, beam_width=32)
+    assert len(got) >= 2
+    if quantized:  # int8 on the card vs the CPU: h_q may differ by one step
+        assert [(s["start"], s["end"]) for s in got] == [(s["start"], s["end"]) for s in want]
+    else:
+        assert got == want

@@ -43,10 +43,14 @@ def test_every_module_imports_without_jax_or_stt_tpu():
               "stt_tpu_torch.lm.arpa", "stt_tpu_torch.lm.trie_writer",
               "stt_tpu_torch.tools.generate_scorer_package"}
         assert lm <= set(names), lm - set(names)
+        m9 = {"stt_tpu_torch.evaluate", "stt_tpu_torch.evaluate_tools", "stt_tpu_torch.text",
+              "stt_tpu_torch.evaluate_from_csv", "stt_tpu_torch.evaluate_export",
+              "stt_tpu_torch.export", "stt_tpu_torch.transcribe", "stt_tpu_torch.data.vad"}
+        assert m9 <= set(names), m9 - set(names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 43
+    assert int(proc.stdout.strip()) >= 56
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():
@@ -132,6 +136,44 @@ def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
             raise AssertionError("train(config) ran without CUDA")
         state = train(SttConfig(alphabet_config_path=alphabet, n_hidden=8, epochs=1), device="cpu")
         assert state.step == 0 and next(state.model.parameters()).device.type == "cpu"
+    """, CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_evaluate_export_and_transcribe_default_to_cuda_and_raise_without_it(tmp_path):
+    """The M9 entry points run on the card unless asked for the CPU."""
+    proc = run(f"""
+        import torch
+        from stt_tpu_torch.alphabet import Alphabet
+        from stt_tpu_torch.artifact import build_metadata, save_artifact
+        from stt_tpu_torch.config import SttConfig
+        from stt_tpu_torch.evaluate import evaluate
+        from stt_tpu_torch.evaluate_export import evaluate_export
+        from stt_tpu_torch.export import export
+        from stt_tpu_torch.frontend import FeatureConfig
+        from stt_tpu_torch.models import DeepSpeech, ModelConfig
+        from stt_tpu_torch.transcribe import main as transcribe
+        assert not torch.cuda.is_available()
+        alphabet = {str(tmp_path / "alphabet.txt")!r}
+        open(alphabet, "w").write("a\\nb\\n")
+        cfg = ModelConfig(n_hidden=8, n_cell_dim=8, n_out=3)
+        labels = Alphabet(alphabet)
+        model = DeepSpeech(cfg, generator=torch.Generator().manual_seed(0))
+        path = save_artifact({str(tmp_path / "m")!r}, model,
+                             build_metadata(cfg, FeatureConfig(), labels), labels)
+        config = SttConfig(alphabet_config_path=alphabet, n_hidden=8, test_files=["x.csv"],
+                           checkpoint_dir={str(tmp_path / "ckpt")!r},
+                           export_dir={str(tmp_path / "e")!r})
+        calls = [lambda: evaluate(config, model=model), lambda: export(config),
+                 lambda: evaluate_export(path, "x.csv"),
+                 lambda: transcribe(["--src", "x.wav", "--model_dir", path])]
+        for call in calls:
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e), e
+            else:
+                raise AssertionError("an entry point ran without CUDA")
     """, CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0, proc.stderr
 

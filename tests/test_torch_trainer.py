@@ -229,7 +229,7 @@ def test_flags_parse_like_the_jax_package():
 @pytest.mark.parametrize("argv,where", [
     (["--augment", "volume"], "P6"),
     (["--feature_cache", "/tmp/c"], "P6"),
-    (["--export_dir", "/tmp/e"], "M9"),
+    (["--export_tflite", "true"], "M15"),
     (["--num_processes", "2"], "M13"),
     (["--n_model_parallel", "2"], "M13"),
     (["--profile_dir", "/tmp/p"], "P6"),
