@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of stt_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4,decoder,evaluation]
+    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4,decoder,evaluation,input]
 
 1. Setup: prints the card's name and power limit, turns TF32 off, builds
    every CUDA kernel of the package from its sources (build/kernels/), one
@@ -29,12 +29,15 @@
      state: one step from a common state (the int32 sums are exact), then
      the sequence, with the count of h_q values that differ, the launch
      plan, its streaming floor and the time per step beside K1's in bf16;
-   - K5, the beam scan, at (W, C) in {(8, 8), (32, 29), (128, 29),
-     (128, 127), (500, 29), (512, 31)}, B in {1, 16}, T in {16, 200}, peaky
-     and flat emissions, one utterance shorter than T; the cutoff branches,
-     an external class layout, chunks of 16 against one launch, and a state
+   - K5, the beam scan, in its narrow instance (pool in shared memory) at
+     (W, C) in {(8, 8), (32, 29), (128, 29), (128, 127), (500, 29), (512,
+     31)}, B in {1, 16}, T in {16, 200}, and in its wide instance (pool in
+     device memory, byte alphabets) at (W, C) in {(32, 256), (128, 200),
+     (500, 256), (512, 256)}, B in {1, 8}, T in {16, 240}; peaky and flat
+     emissions, one utterance shorter than T; the cutoff branches, an
+     external class layout, chunks of 16 against one launch, and a state
      handed from the plain version to the kernel mid-stream, at beam 32 and
-     at the serving default of 500. Backpointers must be equal. Then where a
+     500 over 29 and 256 classes. Backpointers must be equal. Then where a
      frame's time goes at beam 32 and 500 (a variant built with
      K5_PHASE_CLOCKS: SM cycles by phase) and the most live keys a frame had.
 3. Serving phase: a full-width DeepSpeech (the 2048 geometry, 29 outputs)
@@ -91,10 +94,23 @@
    the .sttpkg answering as the directory; `transcribe_file` on a 30 s
    seeded recording with the float export (K1) and the int8 one under
    quantized_inference=True (K2); `evaluate_export` on the dev CSV. No
-   training kernel may launch. `--phases evaluation` runs the training
-   phase first, for its checkpoint.
+   training kernel may launch. Then `evaluate` with --device_decode full
+   --bytes_output_mode at beam 500 on a full-width bytes-mode checkpoint
+   (n_out 256, seeded random weights): K5 in its wide instance, transcripts
+   equal to the plain scan's on the same probabilities. `--phases
+   evaluation` runs the training phase first, for its checkpoint.
+4c. Input phase (also `--phases input`): `train(config)` of the
+   full-width model from a CSV of FLAC (16 kHz, by `write_flac` here) and
+   mu-law SPHERE (8 kHz), an SDB and a tar of 8 kHz WAV (32 utterances,
+   B = 16, three epochs) with --augment covering every augmentation (codec
+   where libopus loads), --feature_cache and --cache_for_epochs 2, 8 input
+   workers and --profile_dir: K3 and K4 every step, the cache written in
+   epoch 0, serving epoch 1 with no featurize, dropped at epoch 2; the
+   trace names K3's and K4's kernels; 8 workers' batches equal the serial
+   ones; the host featurize rate, serial and on 8 threads, beside the
+   train step's.
 5. Prints one JSON line listing every kernel (launches counted over the
-   serving, training and evaluation phases' runs), the card's name and
+   serving, training, evaluation and input phases' runs), the card's name and
    power limit, and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
@@ -176,6 +192,20 @@ LM_WORDS = (
 LM_SENTENCES, LM_ORDER, LM_ALPHA, LM_BETA = 3000, 3, 0.93, 1.18
 HOT_WORDS = {"water": 2.0, "the": -0.5, "year": 1.0}
 TRAIN_SHAPE = (16, 256)  # (B, T) of the training phase's longest batch
+# the input phase's --augment: every augmentation of the reference (codec
+# only where libopus loads), the overlay's source filled in at run time
+INPUT_AUGMENT = (
+    "overlay[p=0.5,source={noise},snr=8:20,layers=1:2]", "reverb[p=0.3,delay=10:30,decay=5:15]",
+    "resample[p=0.3,rate=8000:12000]", "volume[p=0.5,dbfs=-20:-3]",
+    "pitch[p=0.3,pitch=0.9:1.1~0.05]", "tempo[p=0.3,factor=0.9:1.1]", "warp[p=0.3]",
+    "frequency_mask[p=0.5,n=1:3,size=1:5]", "time_mask[p=0.5,n=1:3,size=10:50]",
+    "dropout[p=0.3,rate=0.02:0.05]", "add[p=0.3,stddev=0.1]", "multiply[p=0.3,stddev=0.05]",
+)
+INPUT_CODEC = "codec[p=0.3,bitrate=8000:16000]"
+# threaded against serial featurization of one epoch, the same package:
+# numpy's and torch's CPU kernels may sum in another order under threads
+# (stt_tpu's tests/test_data.py)
+THREADED_RTOL, THREADED_ATOL = 1e-4, 1e-5
 
 
 def gpu_line() -> str:
@@ -690,9 +720,13 @@ def beam_results(scores, src, char, W: int) -> list:
     from stt_tpu_torch.alphabet import Alphabet
     from stt_tpu_torch.decode.device import rebuild_results
 
-    alphabet = Alphabet().init_from_labels([chr(33 + i) for i in range(127)])
+    alphabet = Alphabet().init_from_labels([chr(33 + i) for i in range(255)])
     found = rebuild_results(scores.cpu().numpy(), src, char, alphabet, W)
     return [(r.tokens, r.timesteps) for r in found]
+
+
+K5_NARROW = ((8, 8), (32, 29), (128, 29), (128, 127), (500, 29), (512, 31))  # pool in shared memory
+K5_WIDE = ((32, 256), (128, 200), (500, 256), (512, 256))  # pool in device memory
 
 
 def k5_phase(device, seed: int) -> list:
@@ -709,51 +743,62 @@ def k5_phase(device, seed: int) -> list:
         return beam_scan_plain(beam_kernel.state_to_plain(state, W), probs, lens, W, *params)
 
     records = []
-    for W, C in ((8, 8), (32, 29), (128, 29), (128, 127), (500, 29), (512, 31)):
-        for B in (1, 16):
-            for T in (16, 200):
-                for peaky in (True, False):
-                    probs, lens = beam_inputs(B, T, C, peaky, seed + W + C + B + T, device)
-                    name = f"K5 W={W} C={C} B={B} T={T} {'peaky' if peaky else 'flat'}"
-                    params = (40, 1.0, None, ())
-                    out = beam_kernel.beam_scan(probs, lens, W, *params)
-                    torch.cuda.synchronize()
-                    err = compare_beam(name, probs, lens, W, out, plain(probs, lens, W, *params), params)
-                    reps = 20 if T <= 16 else 3
-                    ms = cuda_ms(lambda: beam_kernel.beam_scan(probs, lens, W, *params), reps)
-                    plain_ms = cuda_ms(lambda: plain(probs, lens, W, *params), 1)
-                    # the kernel alone: at T = 16 the call's host work can outlast it
-                    device_ms = kernel_device_ms(
-                        lambda: beam_kernel.beam_scan(probs, lens, W, *params), "beam_scan_kernel", reps)
-                    state_bytes = (2 + 5) * B * beam_kernel.state_slots(W) * 4 + B * 4
-                    bp_bytes = B * T * W * (2 if W <= beam_kernel.WSLOTS else 4)
-                    moved = B * T * C * 4 + B * 4 + 2 * beam_kernel.LANES * 4 + 2 * state_bytes + bp_bytes
-                    bound, bound_by = bound_ms(moved, 0, torch.float32)
-                    rec = {"W": W, "C": C, "B": B, "T": T, "emissions": "peaky" if peaky else "flat",
-                           "max_abs_err": err, "tol": K5_SCORE_TOL, "backpointers": "equal",
-                           "ms": ms, "us_per_frame": ms / T * 1e3, "device_ms": device_ms,
-                           "device_us_per_frame": device_ms / T * 1e3, "plain_ms": plain_ms,
-                           "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
-                    print("k5", json.dumps(rec), flush=True)
-                    records.append(rec)
+    narrow = [((W, C), B, T) for W, C in K5_NARROW for B in (1, 16) for T in (16, 200)]
+    wide = [((W, C), B, T) for W, C in K5_WIDE for B in (1, 8) for T in (16, 240)]
+    for (W, C), B, T in narrow + wide:
+        for peaky in (True, False):
+            probs, lens = beam_inputs(B, T, C, peaky, seed + W + C + B + T, device)
+            name = f"K5 W={W} C={C} B={B} T={T} {'peaky' if peaky else 'flat'}"
+            params = (40, 1.0, None, ())
+            out = beam_kernel.beam_scan(probs, lens, W, *params)
+            # the plain version's one run, timed: the fixtures before it warmed its ops
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain(probs, lens, W, *params)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = compare_beam(name, probs, lens, W, out, want, params)
+            reps = 20 if T <= 16 else 3
+            ms = cuda_ms(lambda: beam_kernel.beam_scan(probs, lens, W, *params), reps)
+            # the kernel alone: at T = 16 the call's host work can outlast it
+            device_ms = kernel_device_ms(
+                lambda: beam_kernel.beam_scan(probs, lens, W, *params), "beam_scan_kernel", reps)
+            state_bytes = (2 + 5) * B * beam_kernel.state_slots(W) * 4 + B * 4
+            bp_bytes = B * T * W * (2 if W <= beam_kernel.WSLOTS else 4)
+            lanes = beam_kernel._masks(C, C - 1, (), True)[0].size
+            moved = B * T * C * 4 + B * 4 + 2 * lanes * 4 + 2 * state_bytes + bp_bytes
+            bound, bound_by = bound_ms(moved, 0, torch.float32)
+            rec = {"W": W, "C": C, "B": B, "T": T, "emissions": "peaky" if peaky else "flat",
+                   "instance": "narrow" if beam_kernel.is_narrow(W, C) else "wide",
+                   "max_abs_err": err, "tol": K5_SCORE_TOL, "backpointers": "equal",
+                   "ms": ms, "us_per_frame": ms / T * 1e3, "device_ms": device_ms,
+                   "device_us_per_frame": device_ms / T * 1e3, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+            print("k5", json.dumps(rec), flush=True)
+            records.append(rec)
 
     # the branches of the emission cutoff, and an external class layout
     for label, C, W, params in (
         ("cutoff_top_n=10 cutoff_prob=0.9", 29, 32, (10, 0.9, None, ())),
         ("cutoff_top_n=20", 29, 32, (20, 1.0, None, ())),
         ("blank_id=0 ignored=(1, 2)", 32, 32, (40, 1.0, 0, (1, 2))),
+        ("wide cutoff_top_n=10 cutoff_prob=0.9", 256, 64, (10, 0.9, None, ())),
+        ("wide blank_id=0 ignored=(1, 2)", 200, 130, (40, 1.0, 0, (1, 2))),
     ):
         for peaky in (True, False):
             probs, lens = beam_inputs(4, 48, C, peaky, seed + 100 + C + len(label), device)
             out = beam_kernel.beam_scan(probs, lens, W, *params)
             compare_beam(f"K5 {label} {'peaky' if peaky else 'flat'}", probs, lens, W, out,
                          plain(probs, lens, W, *params), params)
-    print("k5 branches: backpointers equal (cutoff_prob, cutoff_top_n alone, external layout)", flush=True)
+    print("k5 branches: backpointers equal (cutoff_prob, cutoff_top_n alone, external layout; "
+          "narrow and wide)", flush=True)
 
     # chunks of 16 with the state carried against one launch over all T,
-    # and a state handed from the plain version to the kernel mid-stream
-    for W in (32, 500):
-        B, T, C = 4, 64, 29
+    # and a state handed from the plain version to the kernel mid-stream,
+    # in both instances
+    for W, C in ((32, 29), (500, 29), (32, 256), (500, 256)):
+        B, T = 4, 64
         probs, lens = beam_inputs(B, T, C, True, seed + 200 + W, device)
         _, scores, packed = beam_kernel.beam_scan(probs, lens, W)
         state, parts = None, []
@@ -762,17 +807,17 @@ def k5_phase(device, seed: int) -> list:
                 probs[:, t0:t0 + 16].contiguous(), (lens - t0).clamp(0, 16), W, state=state)
             parts.append(bp)
         if not (torch.equal(torch.cat(parts, dim=1), packed) and torch.equal(chunk_scores, scores)):
-            raise AssertionError(f"K5 W={W}: chunks of 16 differ from one launch over all frames")
+            raise AssertionError(f"K5 W={W} C={C}: chunks of 16 differ from one launch over all frames")
         half = plain(probs[:, :32].contiguous(), lens.clamp(max=32), W)
         rest = (probs[:, 32:].contiguous(), (lens - 32).clamp(min=0), W)
         handed = beam_kernel.beam_scan(*rest, state=beam_kernel.state_from_plain(half[0]))
         carried = plain(*rest, state=beam_kernel.state_from_plain(half[0]))
-        compare_beam(f"K5 W={W} state handed from the plain version", *rest, handed, carried,
+        compare_beam(f"K5 W={W} C={C} state handed from the plain version", *rest, handed, carried,
                      (40, 1.0, None, ()), state=beam_kernel.state_from_plain(half[0]))
         if not torch.equal(torch.cat([beam_kernel.pack_bp(half[1], half[2]), handed[2]], dim=1), packed):
-            raise AssertionError(f"K5 W={W}: plain first half + kernel second half differs from one launch")
-    print("k5 chunked == one launch; plain -> kernel hand-over mid-stream equal (beam 32 and 500)",
-          flush=True)
+            raise AssertionError(f"K5 W={W} C={C}: plain first half + kernel second half differs from one launch")
+    print("k5 chunked == one launch; plain -> kernel hand-over mid-stream equal (beam 32 and 500, "
+          "29 and 256 classes)", flush=True)
     return records
 
 
@@ -815,7 +860,7 @@ def k5_against(device, seed: int, other_source: str) -> list:
                     times, results = {"other": [], "this": []}, {}
                     for turn in ("other", "this", "this", "other"):
                         fn = other if turn == "other" else this
-                        beam_kernel._library_function = lambda fn=fn: fn
+                        beam_kernel._library_function = lambda define="", wide=False, fn=fn: fn
                         results[turn] = run()[2]
                         times[turn].append(kernel_device_ms(run, "beam_scan_kernel", 10 if T <= 16 else 3))
                     if not torch.equal(results["other"], results["this"]):
@@ -851,7 +896,7 @@ def k5_split(device, seed: int, records: list) -> list:
     kept = beam_kernel._library_function
     instrumented = kept("K5_PHASE_CLOCKS")
     split = []
-    beam_kernel._library_function = lambda: instrumented
+    beam_kernel._library_function = lambda define="", wide=False: instrumented
     try:
         for W, C in ((BEAM_WIDTH, 29), (500, 29)):
             for peaky in (True, False):
@@ -1571,6 +1616,96 @@ def serving_phase(device, seed: int, work_dir: str, scorers: dict) -> dict:
     }
 
 
+class BitWriter:
+    """MSB-first bits, as FLAC writes them."""
+
+    def __init__(self):
+        self.parts = []
+
+    def put(self, value: int, bits: int) -> None:
+        if bits:
+            self.parts.append(format(value & ((1 << bits) - 1), f"0{bits}b"))
+
+    def put_rice(self, value: int, k: int) -> None:
+        u = 2 * value if value >= 0 else -2 * value - 1  # zigzag
+        self.parts.append("0" * (u >> k) + "1" + (format(u & ((1 << k) - 1), f"0{k}b") if k else ""))
+
+    def bytes(self) -> bytes:
+        bits = "".join(self.parts)
+        bits += "0" * (-len(bits) % 8)  # zero-padded to a byte
+        return int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+
+
+def _crc(data: bytes, bits: int, poly: int) -> int:
+    crc, top, mask = 0, 1 << (bits - 1), (1 << bits) - 1
+    for byte in data:
+        crc ^= byte << (bits - 8)
+        for _ in range(8):
+            crc = ((crc << 1) ^ poly if crc & top else crc << 1) & mask
+    return crc
+
+
+FLAC_RATE_CODES = {8000: 4, 16000: 5, 22050: 6, 24000: 7, 32000: 8, 44100: 9, 48000: 10}
+FLAC_FIXED = {0: [], 1: [1], 2: [2, -1], 3: [3, -3, 1], 4: [4, -6, 4, -1]}
+
+
+def write_flac(path: str, audio: np.ndarray, rate: int, order=2, block: int = 4096) -> None:
+    """16-bit mono FLAC: per frame a FIXED subframe of `order` (0-4) whose
+    residuals are Rice-coded in one partition, or a VERBATIM subframe when
+    order is None; frame headers with CRC-8, frames with CRC-16, STREAMINFO
+    without MD5. A small encoder for seeded fixtures."""
+    pcm = np.clip(np.asarray(audio) * 32768.0, -32768, 32767).astype(np.int64)
+    info = BitWriter()
+    for value, bits in ((block, 16), (block, 16), (0, 24), (0, 24), (rate, 20), (0, 3),
+                        (15, 5), (len(pcm), 36)):
+        info.put(value, bits)
+    out = [b"fLaC", bytes([0x80, 0, 0, 34]), info.bytes() + bytes(16)]
+    for index, start in enumerate(range(0, len(pcm), block)):
+        x = pcm[start:start + block]
+        head = BitWriter()
+        head.put(0xFFF8, 16)  # sync, reserved, fixed block size
+        head.put(12 if len(x) == block else 7, 4)  # 4096, or 16 bits of size - 1 below
+        head.put(FLAC_RATE_CODES.get(rate, 0), 4)
+        head.put(0, 4)  # mono
+        head.put(4, 3)  # 16 bits a sample
+        head.put(0, 1)
+        if index < 0x80:
+            head.put(index, 8)
+        else:  # two-byte UTF-8 frame number
+            head.put(0xC0 | (index >> 6), 8)
+            head.put(0x80 | (index & 0x3F), 8)
+        if len(x) != block:
+            head.put(len(x) - 1, 16)
+        header = head.bytes()
+        body = BitWriter()
+        body.put(0, 1)
+        if order is None or len(x) <= order:
+            body.put(1, 6)  # VERBATIM
+            body.put(0, 1)
+            for v in x.tolist():
+                body.put(v, 16)
+        else:
+            body.put(8 + order, 6)  # FIXED
+            body.put(0, 1)
+            for v in x[:order].tolist():
+                body.put(v, 16)
+            pred = np.zeros(len(x) - order, np.int64)
+            for i, c in enumerate(FLAC_FIXED[order]):
+                pred += c * x[order - 1 - i:len(x) - 1 - i]
+            residual = (x[order:] - pred).tolist()
+            mean = float(np.mean(np.abs(residual))) if residual else 0.0
+            k = min(14, max(0, int(np.log2(mean + 1))))
+            body.put(0, 2)  # 4-bit Rice parameters
+            body.put(0, 4)  # one partition
+            body.put(k, 4)
+            for r in residual:
+                body.put_rice(r, k)
+        frame = header + bytes([_crc(header, 8, 0x07)]) + body.bytes()
+        out.append(frame + _crc(frame, 16, 0x8005).to_bytes(2, "big"))
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
 def write_dataset(data_dir: str, rng: np.random.RandomState, rate: int) -> dict:
     """Seeded utterances of 2-5 s with random transcripts over the 28
     labels: 32 for training, 8 for dev, as CSVs of WAV files."""
@@ -1799,6 +1934,253 @@ def training_phase(device, seed: int, work_dir: str) -> dict:
     return rec
 
 
+def write_input_dataset(data_dir: str, rng: np.random.RandomState) -> dict:
+    """32 seeded utterances of 2-5 s over the 28 labels: 8 FLAC at 16 kHz
+    (write_flac, FIXED subframes of order 0-4 and one VERBATIM) and 8 mu-law
+    SPHERE at 8 kHz (the port's write_sph) in a CSV; 8 WAV at 8 kHz in an SDB
+    (the port's SDBWriter); 8 WAV at 8 kHz in a webdataset tar (.wav and .txt
+    members: the tar source reads WAV members, in stt_tpu as in the port);
+    and the overlay's noise, a second seeded SDB."""
+    import io
+    import tarfile
+    import wave
+
+    from stt_tpu_torch.data.sources import Sample, SDBWriter
+    from stt_tpu_torch.data.sph import write_sph
+
+    shutil.rmtree(data_dir, ignore_errors=True)
+    os.makedirs(data_dir)
+    paths = {"alphabet": os.path.join(data_dir, "alphabet.txt"),
+             "csv": os.path.join(data_dir, "mixed.csv"), "sdb": os.path.join(data_dir, "wav8k.sdb"),
+             "tar": os.path.join(data_dir, "wav8k.tar"), "noise": os.path.join(data_dir, "noise.sdb")}
+    with open(paths["alphabet"], "w") as f:
+        f.write("".join(label + "\n" for label in LABELS))
+
+    def utterances(n: int, rate: int):
+        for _ in range(n):
+            seconds = rng.uniform(2.0, 5.0)
+            words = " ".join("".join(rng.choice(LABELS[1:], rng.randint(2, 7)))
+                             for _ in range(rng.randint(3, 9)))[: int(seconds * 8)]
+            yield words.strip() or "a", utterance(seconds, rate, rng)
+
+    rows = []
+    for i, (text, audio) in enumerate(utterances(8, 16000)):
+        name = f"flac{i}.flac"
+        write_flac(os.path.join(data_dir, name), audio, 16000, order=None if i == 7 else i % 5)
+        rows.append((name, text))
+    for i, (text, audio) in enumerate(utterances(8, 8000)):
+        name = f"sph{i}.sph"
+        write_sph(os.path.join(data_dir, name), audio, 8000, coding="ulaw")
+        rows.append((name, text))
+    with open(paths["csv"], "w") as f:
+        f.write("wav_filename,wav_filesize,transcript\n")
+        for name, text in rows:
+            f.write(f"{name},{os.path.getsize(os.path.join(data_dir, name))},{text}\n")
+    with SDBWriter(paths["sdb"]) as writer:
+        for i, (text, audio) in enumerate(utterances(8, 8000)):
+            writer.add(Sample(f"sdb{i}", text, _audio=audio, _rate=8000))
+    with tarfile.open(paths["tar"], "w") as tar:
+        for i, (text, audio) in enumerate(utterances(8, 8000)):
+            wav = io.BytesIO()
+            with wave.open(wav, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(8000)
+                w.writeframes(np.clip(audio * 32768.0, -32768, 32767).astype(np.int16).tobytes())
+            for member, data in ((f"tar{i}.wav", wav.getvalue()), (f"tar{i}.txt", text.encode())):
+                info = tarfile.TarInfo(member)
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+    with SDBWriter(paths["noise"]) as writer:
+        for i in range(4):
+            noise = (0.1 * rng.randn(int(rng.uniform(1.0, 3.0) * 16000))).astype(np.float32)
+            writer.add(Sample(f"noise{i}", "noise", _audio=noise, _rate=16000))
+    return paths
+
+
+def featurize_epoch(sources: list, alphabet, fc, augment: list, workers: int) -> tuple:
+    """One training epoch's batches (B = 16, epoch 1 of 3) featurized on the
+    host with `workers` threads (0: serially), from freshly read sources:
+    (batches as numpy arrays with their ids, seconds, audio-seconds)."""
+    from stt_tpu_torch.data.augmentations import parse_augmentations
+    from stt_tpu_torch.data.feeding import create_batches
+
+    out, audio_s = [], 0.0
+    start = time.perf_counter()
+    for batch, ids in create_batches(sources, alphabet, fc, batch_size=16,
+                                     augmentations=parse_augmentations(augment), train_phase=True,
+                                     epoch=1, total_epochs=3, num_workers=workers,
+                                     prefetch=2 if workers else 0):
+        out.append((ids, [t.numpy() for t in batch]))
+        audio_s += float(batch.feature_lengths.sum()) * fc.step_samples / fc.sample_rate
+    return out, time.perf_counter() - start, audio_s
+
+
+def input_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """`train(config)` of the full-width model on the card from CSV (FLAC and
+    8 kHz SPHERE), SDB and tar (8 kHz WAV) sources, 32 utterances, B = 16,
+    three epochs, with --augment covering every augmentation (codec where
+    libopus loads), --feature_cache with --cache_for_epochs 2, 8 input
+    workers, 2 batches of prefetch and --profile_dir. Holds: every step
+    launches K3 and K4; losses finite, parameters moved; the cache file is
+    written at the end of epoch 0, epoch 1 featurizes nothing, epoch 2 drops
+    the file and writes it again; the trace exists and names K3's and K4's
+    kernels; one epoch's batches on 8 threads equal the serial ones (every
+    augmentation but the overlay, whose noise cursor follows the order rows
+    are featurized). Prints the host featurize rate, serial and on 8
+    threads, beside the train step's."""
+    import stt_tpu_torch.data.feeding as feeding
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.data.feature_cache import FeatureCache
+    from stt_tpu_torch.data.feeding import create_batches
+    from stt_tpu_torch.data.opus import opus_available
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.models import DeepSpeech
+    from stt_tpu_torch.ops.lstm_train import lstm_train_bwd, lstm_train_fwd
+    from stt_tpu_torch.train import make_train_step
+    from stt_tpu_torch.train.trainer import train
+
+    rng = np.random.RandomState(seed + 3)
+    start = time.perf_counter()
+    paths = write_input_dataset(os.path.join(work_dir, "data"), rng)
+    write_s = time.perf_counter() - start
+    codec = opus_available()
+    augment = [a.format(noise=paths["noise"]) for a in INPUT_AUGMENT] + ([INPUT_CODEC] if codec else [])
+    print(f"input: codec augmentation {'included' if codec else 'left out: libopus not found'}",
+          flush=True)
+    cache = os.path.join(work_dir, "features.cache")
+    profile_dir = os.path.join(work_dir, "profile")
+    summary = os.path.join(work_dir, "summary")
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    shutil.rmtree(summary, ignore_errors=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    sources = [paths["csv"], paths["sdb"], paths["tar"]]
+    config = SttConfig(
+        train_files=sources, alphabet_config_path=paths["alphabet"], n_hidden=2048,
+        train_batch_size=16, epochs=3, dropout_rate=0.05, augment=augment,
+        feature_cache=cache, cache_for_epochs=2, input_workers=8, prefetch_batches=2,
+        profile_dir=profile_dir, profile_steps=2, summary_dir=summary, seed=seed,
+    )
+    initial = DeepSpeech(config.model_config(training=True),
+                         generator=torch.Generator().manual_seed(seed)).state_dict()
+
+    # the cache's life, as train() drives it: featurize calls, and the file
+    # after each finalize and invalidation
+    events = []
+    real = (feeding.featurize_sample, FeatureCache.finalize, FeatureCache.maybe_invalidate)
+
+    def featurize(*args, **kw):
+        events.append("featurize")
+        return real[0](*args, **kw)
+
+    def finalize(self, n_rows):
+        real[1](self, n_rows)
+        events.append(("finalize", os.path.isfile(cache)))
+
+    def maybe_invalidate(self, epoch):
+        dropped = real[2](self, epoch)
+        events.append(("epoch", epoch, dropped, os.path.isfile(cache)))
+        return dropped
+
+    feeding.featurize_sample, FeatureCache.finalize, FeatureCache.maybe_invalidate = (
+        featurize, finalize, maybe_invalidate)
+    lstm_train_fwd.launches = lstm_train_bwd.launches = 0
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state = train(config, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - start
+    finally:
+        feeding.featurize_sample, FeatureCache.finalize, FeatureCache.maybe_invalidate = real
+    launches = {"k3": lstm_train_fwd.launches, "k4": lstm_train_bwd.launches}
+    steps = state.step
+    failures = []
+    if not launches["k3"] == launches["k4"] == steps == 7:
+        failures.append(f"every train step must launch K3 and K4 (a dummy step and 2 an "
+                        f"epoch): {launches}, {steps} steps")
+    with open(os.path.join(summary, "scalars.jsonl")) as f:
+        losses = [r["train/step_loss"] for r in map(json.loads, f) if "train/step_loss" in r]
+    if len(losses) != steps - 1 or not np.isfinite(losses).all():
+        failures.append(f"train step losses: {losses}")
+    if [k for k, v in state.params.items() if torch.equal(v.detach().cpu(), initial[k])]:
+        failures.append("parameters did not move")
+
+    # per epoch: (featurize calls, the file after its finalize), and the
+    # invalidation at its start
+    epochs, current = [], None
+    for e in events:
+        if isinstance(e, tuple) and e[0] == "epoch":
+            current = {"epoch": e[1], "dropped": e[2], "file_at_start": e[3], "featurized": 0}
+            epochs.append(current)
+        elif e == "featurize" and current is not None:
+            current["featurized"] += 1
+        elif isinstance(e, tuple) and e[0] == "finalize" and current is not None:
+            current["file_after"] = e[1]
+    want = [{"epoch": 0, "dropped": False, "file_at_start": False, "featurized": 32, "file_after": True},
+            {"epoch": 1, "dropped": False, "file_at_start": True, "featurized": 0, "file_after": True},
+            {"epoch": 2, "dropped": True, "file_at_start": False, "featurized": 32, "file_after": True}]
+    if epochs != want:
+        failures.append(f"feature cache: {epochs}, want {want}")
+    trace = os.path.join(profile_dir, "trace.json")
+    names = {}
+    if os.path.isfile(trace):
+        with open(trace) as f:
+            text = f.read()
+        names = {n: text.count(n) for n in (RECURRENCE_KERNEL, BWD_KERNEL)}
+    if not names or not all(names.values()):
+        failures.append(f"the profiler trace {trace} names K3's and K4's kernels: {names}")
+
+    # threaded against serial featurization of one epoch, and their rates
+    alphabet = Alphabet(paths["alphabet"])
+    fc = FeatureConfig()
+    no_overlay = [a for a in augment if not a.startswith("overlay")]
+    serial, serial_s, audio_s = featurize_epoch(sources, alphabet, fc, no_overlay, 0)
+    threaded, threaded_s, _ = featurize_epoch(sources, alphabet, fc, no_overlay, 8)
+    same = [ids for ids, _ in serial] == [ids for ids, _ in threaded] and len(serial) == 2
+    worst = 0.0
+    for (_, (f, fl, l, ll)), (_, (tf, tfl, tl, tll)) in zip(serial, threaded):
+        same &= (np.array_equal(fl, tfl) and np.array_equal(l, tl) and np.array_equal(ll, tll)
+                 and f.shape == tf.shape)
+        if f.shape == tf.shape:
+            same &= bool(np.allclose(tf, f, rtol=THREADED_RTOL, atol=THREADED_ATOL))
+            worst = max(worst, float(np.abs(tf - f).max()))
+    if not same:
+        failures.append(f"8 input workers' batches differ from the serial ones (worst {worst})")
+
+    # the train step at B = 16 on this data's first batch, for the rates
+    batch, _ = next(create_batches(sources, alphabet, fc, batch_size=16, reverse=True, limit=16))
+    batch = batch.to(device)
+    step = make_train_step()
+    step(state, batch, seed)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(3):
+        step(state, batch, seed)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / 3
+    batch_audio_s = float(batch.feature_lengths.sum()) * fc.step_samples / fc.sample_rate
+    rec = {
+        "steps": steps, "train_s": train_s, "dataset_write_s": write_s, "launches": launches,
+        "losses": losses, "cache": epochs, "trace_kernel_mentions": names,
+        "codec": codec, "augment": augment, "utterances": 32, "audio_s": audio_s,
+        "featurize_serial_s": serial_s, "featurize_8_workers_s": threaded_s,
+        "featurize_serial_audio_s_per_s": audio_s / serial_s,
+        "featurize_8_workers_audio_s_per_s": audio_s / threaded_s,
+        "featurize_serial_ms_per_batch": serial_s * 1e3 / len(serial),
+        "featurize_8_workers_ms_per_batch": threaded_s * 1e3 / len(threaded),
+        "threaded_vs_serial_max_abs": worst, "train_step_ms": step_ms,
+        "train_step_audio_s_per_s": batch_audio_s / (step_ms / 1e3),
+        "host_cpus": os.cpu_count(), "gpu": card,
+    }
+    print("input", json.dumps(rec), flush=True)
+    if failures:
+        raise AssertionError("input phase: " + "; ".join(failures))
+    return rec
+
+
 EVAL_CASES = (  # (name, SttConfig fields) of the evaluation phase's evaluate runs
     ("off", {"device_decode": "off"}),
     ("prune", {"device_decode": "prune"}),
@@ -1889,6 +2271,59 @@ def evaluation_split(device, model, config, batches, alphabet, scorer, card: str
            "chunked_vs_bulk_reps": pulls, "gpu": card}
     print("evaluate_split", json.dumps(rec), flush=True)
     return rec, probs_list
+
+
+def evaluate_in_bytes_mode(device, seed: int, out_dir: str, paths: dict, counted) -> tuple:
+    """`evaluate(config)` with --device_decode full --bytes_output_mode at
+    beam 500 on the dev CSV: a full-width bytes-mode model (n_out 256,
+    seeded random weights) saved as a checkpoint and evaluated on the card,
+    which must launch K5 (its wide instance, by shape) and K1; its
+    transcripts must equal those of the port's plain scan on the same
+    probabilities, on the card. Returns (failures, the run's record)."""
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.data.feeding import create_batches
+    from stt_tpu_torch.decode.device import _device_beam_scan, rebuild_results
+    from stt_tpu_torch.evaluate import evaluate, load_model
+    from stt_tpu_torch.ops import beam_kernel
+    from stt_tpu_torch.train import create_train_state
+    from stt_tpu_torch.train.checkpoints import CheckpointManager
+
+    ckpt = os.path.join(out_dir, "bytes_checkpoint")
+    config = SttConfig(
+        test_files=[paths["dev"]], bytes_output_mode=True, n_hidden=2048, test_batch_size=8,
+        export_beam_width=500, device_decode="full", checkpoint_dir=ckpt, seed=seed,
+    )
+    model_config = config.model_config(training=False)
+    if model_config.n_out != 256 or beam_kernel.is_narrow(500, model_config.n_out):
+        raise AssertionError(f"bytes mode must run K5's wide instance: n_out {model_config.n_out}")
+    CheckpointManager(ckpt).save(create_train_state(model_config, seed=seed, device=device), "last")
+    model = load_model(config, device)
+    alphabet = config.resolve_alphabet()
+    [res], rec = counted("evaluate[full, bytes]", lambda: evaluate(config, model=model),
+                         ("k1", "k5"))
+    rec.update(transcripts=[r.res for r in res], n_out=model_config.n_out, beam=500,
+               instance="wide")
+    failures = []
+    plain = {}
+    with torch.no_grad():
+        for batch, ids in create_batches([paths["dev"]], alphabet, config.feature_config,
+                                         batch_size=config.test_batch_size):
+            batch = batch.to(device)
+            logits, _ = model(batch.features, seq_len=batch.feature_lengths)
+            probs = torch.softmax(logits, dim=-1)
+            scores, src, char = _device_beam_scan(probs, batch.feature_lengths, 500,
+                                                  config.cutoff_top_n, config.cutoff_prob)
+            for i, sample_id in enumerate(ids):
+                plain[sample_id] = rebuild_results(
+                    scores[i].cpu().numpy(), src[i].cpu().numpy(), char[i].cpu().numpy(),
+                    alphabet)[0].transcript
+    equal = [plain[r.sample_id] == r.res for r in res]
+    rec.update(equal_to_plain_scan=equal, transcript_bytes=[len(r.res.encode()) for r in res])
+    print("evaluate", json.dumps(rec), flush=True)
+    if not all(equal) or len(equal) != 8:
+        failures.append(f"evaluate[full, bytes] differs from the plain scan on the same "
+                        f"probabilities: {equal}")
+    return failures, rec
 
 
 def evaluation_phase(device, seed: int, work_dir: str, paths: dict, scorers: dict,
@@ -1995,6 +2430,11 @@ def evaluation_phase(device, seed: int, work_dir: str, paths: dict, scorers: dic
         failures.append("evaluate with cutoff_top_n 10 (chunked, pruned on the card) differs "
                         "from the host-pruned decode of the same probabilities")
 
+    # ---- evaluate[full, bytes]: K5's wide instance (256 classes, beam 500) --
+    res, rec = evaluate_in_bytes_mode(device, seed, out_dir, paths, counted)
+    runs.append(rec)
+    failures += res
+
     # ---- export: float, --export_zip, --export_quantize --------------------
     exports = {}
     for name, fields in (("float", {}), ("zip", {"export_zip": True}),
@@ -2075,8 +2515,8 @@ def main() -> int:
                         help="with --phases k5: also time K5 in turns against this version of "
                              "its source")
     parser.add_argument("--phases", default="",
-                        help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation) to "
-                             "run alone (evaluation trains its checkpoint first), "
+                        help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation, "
+                             "input) to run alone (evaluation trains its checkpoint first), "
                              "for work on a kernel or the host decoder: prints their records "
                              "and no result line")
     args = parser.parse_args()
@@ -2110,6 +2550,9 @@ def main() -> int:
     if args.phases:
         alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase}
         for name in args.phases.split(","):
+            if name == "input":
+                input_phase(device, args.seed, os.path.join(work_dir, "input"), card)
+                continue
             if name == "decoder":
                 decoder_phase(device, args.seed, build_scorers(os.path.join(work_dir, "lm"), args.seed),
                               decoder_inputs(device, args.seed, os.path.join(work_dir, "model")))
@@ -2139,6 +2582,7 @@ def main() -> int:
     training = training_phase(device, args.seed, os.path.join(work_dir, "train"))
     evaluation = evaluation_phase(device, args.seed, os.path.join(work_dir, "train"),
                                   training["paths"], scorers, card)
+    inputs = input_phase(device, args.seed, os.path.join(work_dir, "input"), card)
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
     main_shape = next(r for r in k1 if (r["dtype"], r["B"], r["T"]) == ("float32", 1, 16))
@@ -2148,7 +2592,7 @@ def main() -> int:
         "source": "stt_tpu_torch/ops/csrc/lstm_recurrence.cu",
         "replaces": "stt_tpu/ops/lstm_kernel.py:44",
         "launches": (sum(r["k1_launches"] for r in serving["requests"])
-                     + evaluation["launches"]["k1"]),
+                     + training["launches"]["k1"] + evaluation["launches"]["k1"]),
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2166,7 +2610,7 @@ def main() -> int:
             "route": "cuda",
             "source": "stt_tpu_torch/ops/csrc/lstm_train.cu",
             "replaces": f"stt_tpu/ops/lstm_train.py:{line}",
-            "launches": training["launches"][key],
+            "launches": training["launches"][key] + inputs["launches"][key],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2204,7 +2648,7 @@ def main() -> int:
             json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4,
                        "k5": k5, "k5_phases": k5_phases, "native_build": native_build,
                        "serving": serving, "decoder": decoder, "training": training,
-                       "evaluation": evaluation,
+                       "evaluation": evaluation, "input": inputs,
                        "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -95,7 +95,7 @@ def parse_hot_words(spec: str):
     return pairs
 
 
-AUDIO_EXTENSIONS = (".wav",)
+AUDIO_EXTENSIONS = (".wav", ".flac")
 
 
 def resolve_audio_paths(audio: str) -> List[str]:
@@ -158,7 +158,7 @@ def main(argv=None) -> int:
 
         print(f"stt_tpu_torch {__version__}")
         return 0
-    from stt_tpu_torch.data.audio import read_wav
+    from stt_tpu_torch.data.audio import read_audio
     from stt_tpu_torch.serve import Model
 
     model = Model(args.model, device=args.device)
@@ -177,7 +177,7 @@ def main(argv=None) -> int:
 
     rate = model.sample_rate()
     for path in resolve_audio_paths(args.audio):
-        audio, _ = read_wav(path, desired_rate=rate)
+        audio, _ = read_audio(path, desired_rate=rate)
         t0 = time.time()
         if args.stream:
             chunk = max(int(args.stream * rate / 1000), 1)

@@ -24,11 +24,7 @@ from stt_tpu_torch.models import ModelConfig
 
 # flag -> (its default, the ROADMAP.md slice that ports it)
 NOT_PORTED = {
-    "augment": ([], "P6, augmentations"),
-    "feature_cache": ("", "P6, feature cache"),
-    "cache_for_epochs": (0, "P6, feature cache"),
     "graph_augs_on_device": (False, "M12, on-device augmentation"),
-    "profile_dir": ("", "P6, profiler traces"),
     "export_tflite": (False, "M15, compat"),
     "coordinator_address": ("", "M13, parallelism"),
     "process_id": (-1, "M13, parallelism"),

@@ -1,3 +1,3 @@
-from stt_tpu_torch.data.audio import read_wav, write_wav
+from stt_tpu_torch.data.audio import read_audio, read_wav, write_wav
 
-__all__ = ["read_wav", "write_wav"]
+__all__ = ["read_audio", "read_wav", "write_wav"]

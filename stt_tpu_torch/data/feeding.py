@@ -1,32 +1,46 @@
 """Sample stream -> padded Batch stream (the counterpart of
 `stt_tpu.data.feeding`).
 
-Per-sample MFCC features on the host CPU (the port's own frontend), label
-encoding with an error that names the sample, duration-sorted batches,
-the epoch-seeded batch shuffle `random.Random(563 + epoch)`, time padded
-to a multiple of `pad_time_to` (16) and labels to `pad_labels_to` (8).
-Batches hold CPU tensors; the trainer moves them to the card.
+Per-sample MFCC features on the host CPU (the port's own frontend), with
+the reference's augmentations when training (`data.augmentations`: sample
+domain on the audio, then signal, spectrogram and features domains around
+the frontend's two halves), audio at another rate resampled first, label
+encoding with an error that names the sample, duration-sorted batches, the
+epoch-seeded batch shuffle `random.Random(563 + epoch)`, time padded to a
+multiple of `pad_time_to` (16) and labels to `pad_labels_to` (8). Batches
+hold CPU tensors; the trainer moves them to the card.
 
 `device_featurize` batches carry raw audio instead, padded so that the
 frontend gives exactly the padded frame count, and the MFCC runs on the
 card inside the train step (`train.step.make_train_step_audio`).
 
-Not ported yet (ROADMAP.md, P6): augmentations, the feature cache, and the
-threaded pipeline; batches are featurized serially, which gives the same
-batches as the JAX package's threads.
+`num_workers` > 1 featurizes a batch's rows on a thread pool and
+`prefetch` > 0 assembles batches ahead on a producer thread; every
+sample's augmentation RNG is seeded by (sample id, clock), so the batches
+are those of the serial path. `feature_cache` (a
+`data.feature_cache.FeatureCache`) serves rows it holds and fills the rest.
+
+Not ported yet: the multi-host `row_range` (ROADMAP.md, M13) and the
+on-device augmentation `device_augment` (M12).
 """
 
 from __future__ import annotations
 
 import random
-from typing import Iterable, Iterator, List, Tuple, Union
+from typing import Iterable, Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from stt_tpu_torch.alphabet import Alphabet
+from stt_tpu_torch.data.audio import resample
+from stt_tpu_torch.data.augmentations import (
+    Augmentation,
+    apply_graph_augmentations,
+    apply_sample_augmentations,
+)
 from stt_tpu_torch.data.sources import Sample, samples_from_sources
-from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc
+from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc, mfcc_from_spectrogram, spectrogram
 from stt_tpu_torch.train.step import Batch
 
 
@@ -49,20 +63,60 @@ def text_to_char_array(transcript: str, alphabet: Alphabet, context: str = "") -
     return np.asarray(encoded, np.int32)
 
 
-def _checked_audio(sample: Sample, feature_config: FeatureConfig) -> np.ndarray:
-    if sample.rate != feature_config.sample_rate:
-        raise NotImplementedError(
-            f"{sample.sample_id} is sampled at {sample.rate} Hz, the features want "
-            f"{feature_config.sample_rate} Hz; resampling is not ported to "
-            "stt_tpu_torch yet (ROADMAP.md, P6)"
-        )
-    return np.asarray(sample.audio, np.float32)
+def _at_rate(sample: Sample, feature_config: FeatureConfig) -> Sample:
+    """The sample at the frontend's rate (a new Sample when resampled)."""
+    if sample.rate == feature_config.sample_rate:
+        return sample
+    return Sample(
+        sample_id=sample.sample_id,
+        transcript=sample.transcript,
+        duration_hint=sample.duration_hint,
+        _audio=resample(np.asarray(sample.audio, np.float32), sample.rate,
+                        feature_config.sample_rate),
+        _rate=feature_config.sample_rate,
+    )
 
 
-def featurize_sample(sample: Sample, feature_config: FeatureConfig) -> np.ndarray:
-    """One utterance -> [T, n_mfcc] float32 features, on the CPU."""
-    audio = torch.from_numpy(_checked_audio(sample, feature_config))
+def featurize_sample(
+    sample: Sample,
+    feature_config: FeatureConfig,
+    augmentations: Sequence[Augmentation] = (),
+    train_phase: bool = False,
+    clock: float = 0.0,
+) -> np.ndarray:
+    """One utterance -> [T, n_mfcc] float32 features, on the CPU (with
+    augmentation when training)."""
+    sample = _at_rate(sample, feature_config)
+    if train_phase and augmentations:
+        sample = apply_sample_augmentations(sample, augmentations, clock=clock)
+        audio = np.asarray(sample.audio, np.float32)
+        audio = apply_graph_augmentations("signal", audio, augmentations, clock=clock)
+        spec = spectrogram(torch.from_numpy(np.asarray(audio, np.float32)), feature_config).numpy()
+        spec = apply_graph_augmentations("spectrogram", spec, augmentations, clock=clock)
+        feats = mfcc_from_spectrogram(
+            torch.from_numpy(np.maximum(spec, 0.0).astype(np.float32)), feature_config).numpy()
+        feats = apply_graph_augmentations("features", feats, augmentations, clock=clock)
+        return np.asarray(feats, np.float32)
+    audio = torch.from_numpy(np.asarray(sample.audio, np.float32))
     return audio_to_mfcc(audio, feature_config).numpy()
+
+
+def prepare_sample_audio(
+    sample: Sample,
+    feature_config: FeatureConfig,
+    augmentations: Sequence[Augmentation] = (),
+    train_phase: bool = False,
+    clock: float = 0.0,
+) -> np.ndarray:
+    """Host half of the device-featurize path: the rate, then the sample-
+    and signal-domain augmentations; the MFCC runs on the card inside the
+    train step."""
+    sample = _at_rate(sample, feature_config)
+    if train_phase and augmentations:
+        sample = apply_sample_augmentations(sample, augmentations, clock=clock)
+        audio = np.asarray(sample.audio, np.float32)
+        return apply_graph_augmentations("signal", audio, augmentations, clock=clock)
+    return np.asarray(sample.audio, np.float32)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -74,29 +128,45 @@ def create_batches(
     alphabet: Alphabet,
     feature_config: FeatureConfig = FeatureConfig(),
     batch_size: int = 1,
-    augmentations=(),
+    augmentations: Sequence[Augmentation] = (),
     train_phase: bool = False,
     epoch: int = 0,
+    total_epochs: int = 1,
     reverse: bool = False,
     limit: int = 0,
     drop_remainder: bool = False,
     pad_time_to: int = 16,
     pad_labels_to: int = 8,
     shuffle_batches: bool = True,
+    num_workers: int = 0,
+    prefetch: int = 0,
     device_featurize: bool = False,
+    feature_cache=None,
+    feature_dtype=None,
 ) -> Iterator[Tuple[Batch, List[str]]]:
     """Yield (padded Batch, sample ids).
 
     reverse/limit give the longest-first dummy run that finds an
-    out-of-memory batch before training starts."""
-    if augmentations:
-        raise NotImplementedError(
-            "augmentations are not ported to stt_tpu_torch yet (ROADMAP.md, P6)"
-        )
+    out-of-memory batch before training starts. A sample's augmentation
+    clock is (epoch + row / rows) / total_epochs.
+
+    device_featurize: spectrogram- and features-domain augmentations are
+    refused (the features never exist on the host).
+
+    feature_cache: rows found in it skip decode and featurize; rows made
+    this epoch fill it, and a completed epoch finalizes (persists) it. It
+    is ignored for device_featurize and for the reversed or limited dummy
+    run, since rows are keyed by their position in the ascending sort.
+
+    feature_dtype: a torch dtype for the feature batch (torch.bfloat16
+    halves the bytes uploaded to a bf16 train step, which casts its
+    features at its first op anyway); None keeps float32."""
     if isinstance(sources, (list, tuple)) and sources and isinstance(sources[0], Sample):
         samples = list(sources)
     else:
         samples = list(samples_from_sources(list(sources), labeled=True))
+    for aug in augmentations:
+        aug.start()
 
     # global duration-proxy sort (ascending); the hint falls back to audio
     samples.sort(key=lambda s: s.duration_hint or s.duration)
@@ -110,21 +180,119 @@ def create_batches(
     if train_phase and shuffle_batches and not reverse:
         random.Random(563 + epoch).shuffle(order)
 
-    for batch_index in order:
-        chunk = samples[batch_index * batch_size : (batch_index + 1) * batch_size]
-        ids = [s.sample_id for s in chunk]
-        labels_list = [text_to_char_array(s.transcript, alphabet, s.sample_id) for s in chunk]
+    clock_base = epoch / max(total_epochs, 1)
+    clock_span = 1.0 / max(total_epochs, 1)
+    total = max(len(samples), 1)
+
+    if device_featurize:
+        bad = [a for a in augmentations
+               if getattr(a, "domain", None) in ("spectrogram", "features")]
+        if bad:
+            raise ValueError(
+                "device_featurize cannot apply host graph augmentations "
+                f"in the spectrogram/features domains: {bad}; use "
+                "--graph_augs_on_device for those"
+            )
+    cache = feature_cache
+    if cache is not None and (device_featurize or reverse or limit):
+        cache = None
+
+    def featurize_row(args):
+        row, sample = args
+        clock = clock_base + clock_span * (row / total)
+        if cache is not None:
+            hit = cache.get(row)
+            if hit is not None:
+                return hit[0], hit[1]
+        labels = text_to_char_array(sample.transcript, alphabet, context=sample.sample_id)
         if device_featurize:
-            batch = _audio_batch(
-                [_checked_audio(s, feature_config) for s in chunk], labels_list,
-                feature_config, pad_time_to, pad_labels_to,
-            )
+            return prepare_sample_audio(
+                sample, feature_config, augmentations, train_phase, clock), labels
+        feats = featurize_sample(sample, feature_config, augmentations, train_phase, clock)
+        if cache is not None:
+            cache.put(row, feats, labels)
+        return feats, labels
+
+    def batch_tasks():
+        for batch_index in order:
+            start = batch_index * batch_size
+            yield list(enumerate(samples[start:start + batch_size], start))
+
+    def assemble(rows, results):
+        ids = [sample.sample_id for _, sample in rows]
+        feats_list = [feats for feats, _ in results]
+        labels_list = [labels for _, labels in results]
+        if device_featurize:
+            return _audio_batch(feats_list, labels_list, feature_config, pad_time_to,
+                                pad_labels_to), ids
+        batch = _feature_batch(feats_list, labels_list, feature_config.n_mfcc, pad_time_to,
+                               pad_labels_to)
+        if feature_dtype is not None:
+            batch = batch._replace(features=batch.features.to(feature_dtype))
+        return batch, ids
+
+    try:
+        if num_workers > 1 or prefetch > 0:
+            yield from _pipelined_batches(batch_tasks(), featurize_row, assemble,
+                                          max(1, num_workers), max(1, prefetch))
         else:
-            batch = _feature_batch(
-                [featurize_sample(s, feature_config) for s in chunk], labels_list,
-                feature_config.n_mfcc, pad_time_to, pad_labels_to,
-            )
-        yield batch, ids
+            for rows in batch_tasks():
+                yield assemble(rows, [featurize_row(r) for r in rows])
+        if cache is not None:
+            cache.finalize(len(samples))  # a full epoch: freeze and persist
+    finally:
+        for aug in augmentations:
+            aug.stop()
+
+
+def _pipelined_batches(tasks, featurize_row, assemble, num_workers: int, prefetch: int):
+    """A producer thread featurizes each batch's rows on a pool of
+    `num_workers` threads and queues up to `prefetch` assembled batches; an
+    error in it is raised in the consumer, and a consumer that stops early
+    stops it."""
+    import queue
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    ready: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    done = object()
+    stop = threading.Event()  # the consumer abandoned the generator
+
+    def offer(item) -> bool:
+        while not stop.is_set():
+            try:
+                ready.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            with ThreadPoolExecutor(max_workers=num_workers) as pool:
+                for rows in tasks:
+                    if stop.is_set():
+                        return
+                    results = list(pool.map(featurize_row, rows))
+                    if not offer(assemble(rows, results)):
+                        return
+            offer(done)
+        except BaseException as exc:  # surfaces in the consumer
+            offer(exc)
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = ready.get()
+            if item is done:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=5.0)
 
 
 def _labels(labels_list, pad_labels_to: int):

@@ -20,11 +20,11 @@
    candidates. Only backpointer tables leave the device; the host rebuilds
    strings and timesteps by walking them (`rebuild_results`), in O(T +
    tokens) whatever the alphabet's size. Shapes the beam kernel takes
-   (`stt_tpu_torch.ops.beam_kernel.supports`: beam <= 512, classes <= 127,
-   beam x (classes + 1) <= 16,384) go through its wrapper, which launches
+   (`stt_tpu_torch.ops.beam_kernel.supports`: beam <= 512, classes <= 256,
+   byte alphabets included) go through its wrapper, which launches
    the Hopper kernel on CUDA tensors and runs `beam_scan_plain`, the
-   kernel's plain version, on CPU tensors. Beyond those shapes (byte
-   alphabets, wider beams) CPU tensors run the plain scan and count
+   kernel's plain version, on CPU tensors. Beyond those shapes (beams
+   above 512, more classes) CPU tensors run the plain scan and count
    themselves in `scan.plain_scans`, and CUDA tensors raise: the plain
    scan never stands in for the kernel on the card. Host arrays go to the
    card (`device="cuda"`) unless the caller passes device="cpu"; tensors
@@ -578,15 +578,16 @@ def _device_beam_scan(probs, seq_len, beam_width, cutoff_top_n, cutoff_prob,
     return logaddexp(state[0], state[1]), src, char
 
 
-def check_scan_shape(beam_width: int, n_class: int, device) -> None:
+def check_scan_shape(beam_width: int, n_class: int, device, blank_id=None) -> None:
     """Raise for a shape the beam kernel does not take when the scan is to
     run on the card."""
     from stt_tpu_torch.ops import beam_kernel
 
-    if torch.device(device).type == "cuda" and not beam_kernel.supports(beam_width, n_class):
+    if torch.device(device).type == "cuda" and not beam_kernel.supports(
+            beam_width, n_class, blank_id):
         raise ValueError(
-            f"device beam search on the card takes beam <= {beam_kernel.WIDE_SLOTS}, classes "
-            f"<= {beam_kernel.LANES - 1} and beam * (classes + 1) <= {beam_kernel.MAX_POOL}, "
+            f"device beam search on the card takes beam <= {beam_kernel.WIDE_SLOTS} and "
+            f"classes <= {beam_kernel.MAX_CLASSES} (the blank last at {beam_kernel.MAX_CLASSES}), "
             f"got beam {beam_width} over {n_class} classes; narrow the beam, use the host "
             "decoder, or pass CPU tensors")
 
@@ -604,12 +605,12 @@ def scan(probs, lens, beam_width, cutoff_top_n, cutoff_prob, blank_id=None,
 
     B, _, C = probs.shape
     ignored = tuple(int(i) for i in ignored_symbols)
-    if beam_kernel.supports(beam_width, C):
+    if beam_kernel.supports(beam_width, C, blank_id):
         return beam_kernel.beam_scan(
             probs, lens, beam_width, cutoff_top_n, cutoff_prob, blank_id, ignored,
             state=state,
         )
-    check_scan_shape(beam_width, C, probs.device)
+    check_scan_shape(beam_width, C, probs.device, blank_id)
     scan.plain_scans += 1
     if state is None:
         state = init_beam_state(B, beam_width, probs.device)

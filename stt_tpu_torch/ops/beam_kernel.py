@@ -10,15 +10,20 @@ with dead slots (-inf, hash (0, 0)), so the kernel's state and the plain
 version's interchange mid-stream (`state_to_plain`, `state_from_plain`).
 
 Capacity (`supports`): the TPU kernel takes beam <= 128 and classes <= 127;
-the Hopper kernel is widened to beam <= WIDE_SLOTS = 512 as long as the
-candidate pool beam x (classes + 1) fits MAX_POOL = 16,384 keys, so the
-serving default of beam 500 over a 29-class alphabet runs in the kernel.
-Beams up to WSLOTS = 128 keep the TPU kernel's 128-slot state and its int16
-backpointer plane (7 bits of source slot above 8 bits of character + 1);
-wider beams have a 512-slot state and an int32 plane of the same packing.
-Shapes beyond `supports` (byte alphabets, beams above 512) are not taken:
-`stt_tpu_torch.decode.device.scan` runs the plain scan for CPU tensors and
-raises for CUDA tensors.
+the Hopper kernel takes beam <= WIDE_SLOTS = 512 and classes <= MAX_CLASSES
+= 256, so byte alphabets run in it at every beam up to the serving default
+of 500. Shapes whose candidate pool beam x (classes + 1) fits MAX_POOL =
+16,384 keys over at most 127 classes run in the narrow instance, with the
+pool in shared memory and masks of 128 lanes; every other shape runs in the
+wide instance, whose pool lies in a scratch of device memory that the
+wrapper allocates and whose masks have 256 lanes. Beams up to WSLOTS = 128
+keep the TPU kernel's 128-slot state and its int16 backpointer plane (7
+bits of source slot above 8 bits of character + 1); wider beams have a
+512-slot state and an int32 plane of the same packing. A character must
+then be at most 254: with 256 classes the blank is the last one. Shapes
+beyond `supports` (beams above 512, more than 256 classes, 256 classes with
+another blank) are not taken: `stt_tpu_torch.decode.device.scan` runs the
+plain scan for CPU tensors and raises for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -41,18 +46,26 @@ from stt_tpu_torch.ops._build import check_tensors, launch, load
 
 WSLOTS = 128  # beam slots of the state between chunks, beams up to 128
 WIDE_SLOTS = 512  # the same for wider beams
-LANES = 128  # class lanes of the masks
-MAX_POOL = 16384  # candidates per frame, beam x (classes + 1)
+LANES = 128  # class lanes of the narrow instance's masks: classes <= 127
+WIDE_LANES = 256  # of the wide instance's
+MAX_CLASSES = WIDE_LANES  # classes the kernel takes
+MAX_POOL = 16384  # candidates per frame, beam x (classes + 1), of the narrow instance
 
 # (f [2, B, 1, S] f32: p_b, p_nb; i [5, B, 1, S] int32: last, ha, hb,
 #  par_ha, par_hb; started [B, 1, 1] int32), S = state_slots(beam)
 KernelState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def supports(beam_width: int, n_class: int) -> bool:
-    """Shapes the kernel takes."""
-    return (beam_width <= WIDE_SLOTS and n_class <= LANES - 1
-            and beam_width * (n_class + 1) <= MAX_POOL)
+def supports(beam_width: int, n_class: int, blank_id: Optional[int] = None) -> bool:
+    """Shapes the kernel takes (blank_id None: the last class)."""
+    last_is_blank = blank_id is None or blank_id == n_class - 1
+    return (beam_width <= WIDE_SLOTS and n_class <= MAX_CLASSES
+            and (n_class < MAX_CLASSES or last_is_blank))
+
+
+def is_narrow(beam_width: int, n_class: int) -> bool:
+    """Whether the shape runs in the narrow instance (pool in shared memory)."""
+    return n_class <= LANES - 1 and beam_width * (n_class + 1) <= MAX_POOL
 
 
 def state_slots(beam_width: int) -> int:
@@ -62,21 +75,22 @@ def state_slots(beam_width: int) -> int:
 
 def _masks(n_class: int, blank: int, ignored_symbols: Sequence[int],
            default_blank: bool) -> Tuple[np.ndarray, np.ndarray]:
-    """(not-ignored [1, 1, LANES] int32, 0 on ignored and padded lanes;
-    static rank [1, 1, LANES] int32)."""
+    """(not-ignored [1, 1, lanes] int32, 0 on ignored and padded lanes;
+    static rank [1, 1, lanes] int32), with LANES lanes up to 127 classes and
+    WIDE_LANES above."""
+    lanes = LANES if n_class <= LANES - 1 else WIDE_LANES
     not_ignored, rank_c = class_masks(n_class, blank, ignored_symbols, default_blank)
-    nign = np.zeros((LANES,), np.int32)
+    nign = np.zeros((lanes,), np.int32)
     nign[:n_class] = not_ignored
-    rank = np.arange(LANES, dtype=np.int32)
+    rank = np.arange(lanes, dtype=np.int32)
     rank[:n_class] = rank_c
-    return nign.reshape(1, 1, LANES), rank.reshape(1, 1, LANES)
+    return nign.reshape(1, 1, lanes), rank.reshape(1, 1, lanes)
 
 
 @functools.lru_cache(maxsize=64)
 def _device_masks(n_class, blank, ignored_symbols, default_blank, device):
     nign, rank = _masks(n_class, blank, ignored_symbols, default_blank)
-    return (torch.from_numpy(nign.reshape(LANES)).to(device),
-            torch.from_numpy(rank.reshape(LANES)).to(device))
+    return torch.from_numpy(nign.ravel()).to(device), torch.from_numpy(rank.ravel()).to(device)
 
 
 def init_state(batch: int, device="cpu", slots: int = WSLOTS) -> KernelState:
@@ -125,9 +139,13 @@ def unpack_bp(packed) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _library_function(define: str = ""):
-    fn = load("beam_scan", define).beam_scan
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+def _library_function(define: str = "", wide: bool = False):
+    """The narrow instance's entry point, or with `wide` the wide one's,
+    which takes the pool's scratch after cutoff_prob."""
+    lib = load("beam_scan", define)
+    fn = lib.beam_scan_wide if wide else lib.beam_scan
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * (2 if wide else 1))
     fn.restype = ctypes.c_int
     return fn
 
@@ -154,10 +172,10 @@ def beam_scan(
         raise ValueError(f"probs must be [B, T, C], got {tuple(probs.shape)}")
     B, T, C = probs.shape
     W = int(beam_width)
-    if W < 1 or not supports(W, C):
+    if W < 1 or not supports(W, C, blank_id):
         raise ValueError(
-            f"the beam kernel takes 1 <= W <= {WIDE_SLOTS}, C <= {LANES - 1} and "
-            f"W * (C + 1) <= {MAX_POOL}, got W = {W}, C = {C}")
+            f"the beam kernel takes 1 <= W <= {WIDE_SLOTS} and C <= {MAX_CLASSES}, with the "
+            f"blank last at C = {MAX_CLASSES}; got W = {W}, C = {C}, blank_id {blank_id}")
     blank = C - 1 if blank_id is None else int(blank_id)
     ignored = tuple(int(s) for s in ignored_symbols)
     if not 0 <= blank < C or any(not 0 <= s < C for s in ignored):
@@ -187,14 +205,17 @@ def beam_scan(
     # what the frame's emission cutoff does: 2 sorts the classes and cuts by
     # cumulative mass or count, 1 only sorts, 0 keeps the static order
     mode = 2 if cutoff_prob < 1.0 else 1 if cutoff_top_n < C else 0
+    # the wide instance's pool: every key of a frame, in device memory
+    pool = None if is_narrow(W, C) else torch.empty(
+        (B, W * (C + 1)), dtype=torch.int64, device=device)
     beam_scan.launches += 1
     launch(
-        _library_function(), "beam_scan", device,
+        _library_function(wide=pool is not None), "beam_scan", device,
         probs.data_ptr(), seq_lengths.data_ptr(), nign.data_ptr(), rank.data_ptr(),
         f.data_ptr(), i.data_ptr(), started.data_ptr(),
         out_f.data_ptr(), out_i.data_ptr(), out_started.data_ptr(),
         bp.data_ptr(), B, T, W, slots, C, blank, int(cutoff_top_n), mode, int(wide),
-        float(cutoff_prob),
+        float(cutoff_prob), *(() if pool is None else (pool.data_ptr(),)),
     )
     scores = logaddexp(out_f[0, :, 0, :W], out_f[1, :, 0, :W])
     return (out_f, out_i, out_started), scores, bp

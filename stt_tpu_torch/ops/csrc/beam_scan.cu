@@ -37,14 +37,26 @@
 // padded pool of up to 16,384 keys by groups of W and merged them: about
 // 95 barriers a frame at W = 500.)
 //
-// Capacity: the TPU kernel takes beams up to 128 slots; this one takes up
-// to 512 as long as the pool W x (C + 1) fits 16,384 keys (128 KB of
-// shared memory), which covers the serving default of beam 500 over a
-// 29-class alphabet. The state tensors have S = 128 slots for beams up to
-// 128 (the TPU kernel's layout) and S = 512 above; the packed backpointer
-// is an int16 up to 128 slots (7 bits of source above 8 bits of character
-// + 1) and an int32 above. All per-slot arrays live in dynamic shared
-// memory behind the keys, since 512 slots pass the 48 KB of static space.
+// Capacity: the TPU kernel takes beams up to 128 slots and 127 classes;
+// this one takes up to 512 slots and 256 classes, in two instances of one
+// template. The narrow instance (classes <= 127 and a pool W x (C + 1) of
+// at most 16,384 keys, 128 KB) keeps the pool in shared memory: it covers
+// the serving default of beam 500 over a 29-class alphabet. The wide
+// instance takes every other shape, byte alphabets (256 classes) at beam
+// 500 among them, whose pool of up to 512 x 257 keys (1.05 MB) no shared
+// memory holds: its live keys are compacted into a scratch of [B, W (C +
+// 1)] keys in device memory that the caller allocates, which the 50 MB L2
+// holds at the batches the main path uses; the radix select's histograms
+// stay in shared memory, and only the W winners come back into shared
+// memory for the sort. Its class masks have 256 lanes, its strike-out bits
+// cover the whole pool (16 KB). The arithmetic is the same code in both.
+// The state tensors have S = 128 slots for beams up to 128 (the TPU
+// kernel's layout) and S = 512 above; the packed backpointer is an int16
+// up to 128 slots (7 bits of source above 8 bits of character + 1) and an
+// int32 above, so a character must be at most 254 (with 256 classes the
+// blank is then the last). All per-slot arrays live in dynamic shared
+// memory (behind the keys in the narrow instance), since 512 slots pass
+// the 48 KB of static space.
 //
 // What bounds it on this card: bytes in the table's sense are tiny (C
 // floats in and W int16 out per frame), but the T frames form a dependency
@@ -54,7 +66,8 @@
 // utterance costs as long as B <= 132.
 //
 // What the design does about it: no device memory traffic inside a frame
-// but the C probabilities and the W backpointers; the selection ranks only
+// but the C probabilities and the W backpointers (and, in the wide
+// instance, the pool's live keys through the L2); the selection ranks only
 // the live keys and sorts only the W winners; frames past the utterance's
 // length or before the first non-blank frame cost one store per slot.
 //
@@ -66,9 +79,11 @@
 
 namespace {
 
-constexpr int LN = 128;  // class lanes of the masks
+constexpr int LN = 128;  // class lanes of the narrow instance's masks
+constexpr int WIDE_LN = 256;     // and of the wide instance's: the most classes
 constexpr int MAX_SLOTS = 512;   // beam slots
-constexpr int MAX_POOL = 16384;  // keys of the candidate pool
+constexpr int MAX_POOL = 16384;  // keys of the narrow instance's pool, in shared memory
+constexpr int WIDE_POOL = MAX_SLOTS * (WIDE_LN + 1);  // of the wide one's, in device memory
 constexpr int SLOT_ARRAYS = 20;  // per-slot arrays of 4-byte values
 constexpr int MAX_SORT = 512;    // keys the final sort takes: the beam, padded
 constexpr int TABLE = 1024;      // open-addressing places of the parent table (2 x MAX_SLOTS)
@@ -255,28 +270,32 @@ __device__ u64 radix_select(const u64* keys, int n, int W, u64 spread, u64 any,
 
 // mode: 0 = classes in static rank order, none cut; 1 = sorted by
 // probability, none cut (cutoff_top_n < C alone); 2 = sorted and cut by
-// cumulative mass cutoff_prob or at cutoff_top_n.
-template <typename BP>
+// cumulative mass cutoff_prob or at cutoff_top_n. WIDE: the pool's keys go
+// to pool [B, W (C + 1)] in device memory, and the masks have WIDE_LN lanes.
+template <typename BP, bool WIDE>
 __global__ void __launch_bounds__(1024)
 beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
                  const int32_t* __restrict__ lens,       // [B]
-                 const int32_t* __restrict__ nign,       // [LN]
-                 const int32_t* __restrict__ rank_static,  // [LN]
+                 const int32_t* __restrict__ nign,       // [lanes]
+                 const int32_t* __restrict__ rank_static,  // [lanes]
                  const float* __restrict__ in_f,         // [2, B, S]
                  const int32_t* __restrict__ in_i,       // [5, B, S]
                  const int32_t* __restrict__ in_started, // [B]
                  float* __restrict__ out_f, int32_t* __restrict__ out_i,
                  int32_t* __restrict__ out_started,
                  BP* __restrict__ bp,                    // [B, T, W]
+                 u64* pool,                              // WIDE: [B, W (C + 1)]
                  int B, int T, int W, int S, int C, int blank,
                  int cutoff_top_n, int mode, float cutoff_prob) {
-  // two sort buffers of MAX_SORT keys, the pool's live keys [W (C + 1)],
-  // then SLOT_ARRAYS arrays of [S]
+  constexpr int lanes = WIDE ? WIDE_LN : LN;
+  constexpr int pool_bits = WIDE ? WIDE_POOL : MAX_POOL;
+  // two sort buffers of MAX_SORT keys, the pool's live keys [W (C + 1)]
+  // (narrow instance only), then SLOT_ARRAYS arrays of [S]
   extern __shared__ u64 dyn[];
   u64 (*const top)[MAX_SORT] = reinterpret_cast<u64 (*)[MAX_SORT]>(dyn);
-  u64* const keys = dyn + 2 * MAX_SORT;
   const int n_pool = W + W * C;
-  float* const slot_f = reinterpret_cast<float*>(keys + n_pool);
+  u64* const keys = WIDE ? pool + (size_t)blockIdx.x * n_pool : dyn + 2 * MAX_SORT;
+  float* const slot_f = reinterpret_cast<float*>(WIDE ? dyn + 2 * MAX_SORT : keys + n_pool);
   float *const pb = slot_f, *const pnb = pb + S, *const score = pnb + S;
   float *const npb = score + S, *const npnb = npb + S, *const exist = npnb + S;
   float *const t_pb = exist + S, *const t_pnb = t_pb + S;
@@ -287,10 +306,10 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
   int32_t *const t_hb = t_ha + S, *const t_pha = t_hb + S;
   int32_t *const t_phb = t_pha + S, *const par_idx = t_phb + S;
   int32_t* const rewrite = par_idx + S;
-  __shared__ float logp[LN], sprob[LN];
-  __shared__ int32_t rank[LN], order[LN], included[LN];
+  __shared__ float logp[lanes], sprob[lanes];
+  __shared__ int32_t rank[lanes], order[lanes], included[lanes];
   __shared__ int32_t started, cutlen;
-  __shared__ unsigned struck[MAX_POOL / 32];  // children already in the beam
+  __shared__ unsigned struck[(pool_bits + 31) / 32];  // children already in the beam
   __shared__ int hist[2][256];               // the radix select's
   __shared__ int wcount[32], decision[3], n_sel;
   __shared__ u64 wmin[32], wmax[32];
@@ -663,36 +682,55 @@ int next_pow2(int n) {
   return p;
 }
 
-template <typename BP>
+template <typename BP, bool WIDE>
 int launch_scan(const float* probs, const int32_t* lens, const int32_t* nign,
                 const int32_t* rank_static, const float* in_f,
                 const int32_t* in_i, const int32_t* in_started, float* out_f,
-                int32_t* out_i, int32_t* out_started, BP* bp, int B, int T,
-                int W, int S, int C, int blank, int cutoff_top_n, int mode,
-                float cutoff_prob, cudaStream_t stream) {
+                int32_t* out_i, int32_t* out_started, BP* bp, u64* pool, int B,
+                int T, int W, int S, int C, int blank, int cutoff_top_n,
+                int mode, float cutoff_prob, cudaStream_t stream) {
   const int n_pool = W + W * C;
   // at least one thread per key of the final sort
   int threads = n_pool <= 512 ? 128 : n_pool <= 2048 ? 256 : n_pool <= 8192 ? 512 : 1024;
   if (threads < next_pow2(W)) threads = next_pow2(W);
-  const size_t smem = (size_t)(2 * MAX_SORT + n_pool) * sizeof(u64) + (size_t)SLOT_ARRAYS * S * 4;
+  const size_t smem = (size_t)(2 * MAX_SORT + (WIDE ? 0 : n_pool)) * sizeof(u64) +
+                      (size_t)SLOT_ARRAYS * S * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      beam_scan_kernel<BP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      beam_scan_kernel<BP, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  beam_scan_kernel<BP><<<B, threads, smem, stream>>>(
+  beam_scan_kernel<BP, WIDE><<<B, threads, smem, stream>>>(
       probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
-      out_started, bp, B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob);
+      out_started, bp, pool, B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool WIDE>
+int scan(const float* probs, const int32_t* lens, const int32_t* nign,
+         const int32_t* rank_static, const float* in_f, const int32_t* in_i,
+         const int32_t* in_started, float* out_f, int32_t* out_i,
+         int32_t* out_started, void* bp, u64* pool, int B, int T, int W, int S,
+         int C, int blank, int cutoff_top_n, int mode, int bp_wide,
+         float cutoff_prob, void* stream) {
+  cudaStream_t on = static_cast<cudaStream_t>(stream);
+  if (bp_wide)
+    return launch_scan<int32_t, WIDE>(probs, lens, nign, rank_static, in_f, in_i, in_started,
+                                      out_f, out_i, out_started, static_cast<int32_t*>(bp),
+                                      pool, B, T, W, S, C, blank, cutoff_top_n, mode,
+                                      cutoff_prob, on);
+  return launch_scan<int16_t, WIDE>(probs, lens, nign, rank_static, in_f, in_i, in_started,
+                                    out_f, out_i, out_started, static_cast<int16_t*>(bp), pool,
+                                    B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob, on);
 }
 
 }  // namespace
 
 extern "C" {
 
-// probs [B, T, C] f32 softmax; lens [B]; nign, rank_static [128] int32;
-// state in and out as f [2, B, 1, S] f32 (p_b, p_nb), i [5, B, 1, S] int32
-// (last, ha, hb, par_ha, par_hb), started [B, 1, 1] int32; bp [B, T, W],
-// int16 or with bp_wide int32 (which W > 128 needs). 1 <= W <= S <= 512,
-// 1 <= C <= 127, W (C + 1) <= 16384.
+// The narrow instance. probs [B, T, C] f32 softmax; lens [B]; nign,
+// rank_static [128] int32; state in and out as f [2, B, 1, S] f32 (p_b,
+// p_nb), i [5, B, 1, S] int32 (last, ha, hb, par_ha, par_hb), started
+// [B, 1, 1] int32; bp [B, T, W], int16 or with bp_wide int32 (which W >
+// 128 needs). 1 <= W <= S <= 512, 1 <= C <= 127, W (C + 1) <= 16384.
 int beam_scan(const float* probs, const int32_t* lens, const int32_t* nign,
               const int32_t* rank_static, const float* in_f,
               const int32_t* in_i, const int32_t* in_started, float* out_f,
@@ -703,14 +741,28 @@ int beam_scan(const float* probs, const int32_t* lens, const int32_t* nign,
   if (W < 1 || W > S || S > MAX_SLOTS || C < 1 || C > LN - 1 ||
       W * (C + 1) > MAX_POOL || (W > 128 && !bp_wide))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t on = static_cast<cudaStream_t>(stream);
-  if (bp_wide)
-    return launch_scan(probs, lens, nign, rank_static, in_f, in_i, in_started,
-                       out_f, out_i, out_started, static_cast<int32_t*>(bp), B,
-                       T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob, on);
-  return launch_scan(probs, lens, nign, rank_static, in_f, in_i, in_started,
-                     out_f, out_i, out_started, static_cast<int16_t*>(bp), B, T,
-                     W, S, C, blank, cutoff_top_n, mode, cutoff_prob, on);
+  return scan<false>(probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
+                     out_started, bp, nullptr, B, T, W, S, C, blank, cutoff_top_n, mode,
+                     bp_wide, cutoff_prob, stream);
+}
+
+// The wide instance: the same arguments, with nign and rank_static of 256
+// lanes, 1 <= C <= 256 (a character of at most 254: with 256 classes the
+// blank is the last), and pool a scratch of B x W (C + 1) 64-bit keys in
+// device memory.
+int beam_scan_wide(const float* probs, const int32_t* lens, const int32_t* nign,
+                   const int32_t* rank_static, const float* in_f,
+                   const int32_t* in_i, const int32_t* in_started, float* out_f,
+                   int32_t* out_i, int32_t* out_started, void* bp, int B, int T,
+                   int W, int S, int C, int blank, int cutoff_top_n, int mode,
+                   int bp_wide, float cutoff_prob, void* pool, void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || W > S || S > MAX_SLOTS || C < 1 || C > WIDE_LN || pool == nullptr ||
+      (C == WIDE_LN && blank != C - 1) || (W > 128 && !bp_wide))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return scan<true>(probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
+                    out_started, bp, static_cast<u64*>(pool), B, T, W, S, C, blank,
+                    cutoff_top_n, mode, bp_wide, cutoff_prob, stream);
 }
 
 #ifdef K5_PHASE_CLOCKS

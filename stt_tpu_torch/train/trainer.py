@@ -15,6 +15,12 @@ counterpart of `stt_tpu.train.trainer`, on one device).
   `plateau_reduction`.
 - Scalars go to `summary_dir/scalars.jsonl`.
 - Pre-flight: the alphabet resolves and `scorer_path`'s package loads.
+- Input: `--augment` specs, featurized on `input_workers` threads with
+  `prefetch_batches` batches assembled ahead, and the `--feature_cache`
+  (dropped every `cache_for_epochs` epochs so that augmentations are drawn
+  anew).
+- `--profile_dir`: a torch.profiler trace (CPU, and CUDA on the card) of
+  epoch 0's first `profile_steps` steps, as `trace.json` in that directory.
 
 The step runs on the card unless the caller passes device="cpu".
 """
@@ -27,8 +33,10 @@ import time
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
-from stt_tpu_torch.config import SttConfig, log_error, log_info
+from stt_tpu_torch.config import SttConfig, log_error, log_info, log_warn
+from stt_tpu_torch.data.augmentations import parse_augmentations
 from stt_tpu_torch.data.feeding import create_batches
 from stt_tpu_torch.data.sources import samples_from_sources
 from stt_tpu_torch.device import resolve_device
@@ -78,6 +86,29 @@ def early_training_checks(config: SttConfig) -> None:
         KenLMScorer(config.scorer_path)  # raises on an invalid package
 
 
+def start_profiler(device: torch.device) -> torch.profiler.profile:
+    """A running torch.profiler session: the host's ops, and the card's
+    kernels when training on the card."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler: torch.profiler.profile, device: torch.device, profile_dir: str) -> None:
+    """Ends the session once the card has run what it queued, and writes its
+    Chrome trace to profile_dir/trace.json."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    profiler.export_chrome_trace(path)
+    log_info(f"Wrote profiler trace to {path}")
+
+
 def train(config: SttConfig, device="cuda") -> TrainState:
     device = resolve_device(device)
     early_training_checks(config)
@@ -114,12 +145,35 @@ def train(config: SttConfig, device="cuda") -> TrainState:
     step_seed = config.seed + 1
 
     train_samples = list(samples_from_sources(config.train_files, labeled=True))
+    augmentations = parse_augmentations(config.augment)
+    input_workers = config.input_workers
+    if input_workers < 0:
+        input_workers = min(8, os.cpu_count() or 1)
+    feature_cache = None
+    if config.feature_cache or config.cache_for_epochs:
+        from stt_tpu_torch.data.feature_cache import FeatureCache
+
+        feature_cache = FeatureCache(config.feature_cache, config.cache_for_epochs)
+        if augmentations and config.cache_for_epochs == 0:
+            log_warn(
+                "Due to your feature-cache settings, augmentations of "
+                "the first epoch will be repeated on all following "
+                "epochs. This may lead to unintended over-fitting. You "
+                "can use --cache_for_epochs <n_epochs> to invalidate "
+                "the cache after a given number of epochs."
+            )
+    # a bf16 step casts its features at its first op: upload them in bf16
+    feature_dtype = (torch.bfloat16 if model_config.dtype == torch.bfloat16
+                     and not config.device_featurize else None)
 
     def batches(epoch: int, reverse=False, limit=0):
         return create_batches(
             train_samples, alphabet, feature_config, batch_size=config.train_batch_size,
-            train_phase=True, epoch=epoch, reverse=reverse, limit=limit,
-            shuffle_batches=config.shuffle_batches, device_featurize=config.device_featurize,
+            augmentations=augmentations, train_phase=True, epoch=epoch,
+            total_epochs=config.epochs, reverse=reverse, limit=limit,
+            shuffle_batches=config.shuffle_batches, num_workers=input_workers,
+            prefetch=config.prefetch_batches, device_featurize=config.device_featurize,
+            feature_cache=feature_cache, feature_dtype=feature_dtype,
         )
 
     def run_eval_epoch(files: List[str]) -> float:
@@ -145,7 +199,11 @@ def train(config: SttConfig, device="cuda") -> TrainState:
     frame_seconds = feature_config.step_samples / feature_config.sample_rate
     summary_writer = make_summary_writer(config.summary_dir)
 
+    profiler = None
     for epoch in range(config.epochs):
+        if feature_cache is not None and feature_cache.maybe_invalidate(epoch):
+            log_info(f"Feature cache invalidated at epoch {epoch} "
+                     f"(--cache_for_epochs {config.cache_for_epochs})")
         epoch_losses: List[float] = []
         epoch_audio_s = 0.0
         t0 = time.time()
@@ -162,17 +220,25 @@ def train(config: SttConfig, device="cuda") -> TrainState:
                 bad_ids = [i for i, b in zip(ids, bad[: len(ids)]) if b]
                 log_error(f"Non-finite loss in step {step_no}; offending samples: {bad_ids}")
 
-        for batch, ids in batches(epoch):
+        for step_in_epoch, (batch, ids) in enumerate(batches(epoch)):
+            if config.profile_dir and epoch == 0 and step_in_epoch == 0:
+                profiler = start_profiler(device)
             epoch_audio_s += float(batch.feature_lengths.sum()) * frame_seconds
             state, metrics = train_step(state, batch.to(device), step_seed)
             pending.append((state.step, metrics, ids))
             if len(pending) > METRICS_LAG:
                 drain_metrics(pending.pop(0))
+            if profiler is not None and step_in_epoch + 1 >= config.profile_steps:
+                stop_profiler(profiler, device, config.profile_dir)
+                profiler = None
             if manager is not None and time.time() - last_save > config.checkpoint_secs:
                 manager.save(state, "last")
                 last_save = time.time()
         for entry in pending:
             drain_metrics(entry)
+        if profiler is not None:  # fewer steps than profile_steps in the epoch
+            stop_profiler(profiler, device, config.profile_dir)
+            profiler = None
         mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
         epoch_wall = time.time() - t0
         throughput = epoch_audio_s / max(epoch_wall, 1e-9)

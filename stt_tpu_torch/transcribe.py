@@ -9,10 +9,10 @@ opened with quantized_inference=True), a softmax stays on the device, and
 `ctc_beam_search_decoder_batch_pruned` decodes, with the scorer if one is
 given. The segments go to a .tlog JSON file beside the audio (or --dst).
 
-A recording must be at the model's sample rate: resampling is not ported
-yet (ROADMAP.md, P6). Several processes (--coordinator_address,
---num_processes above 1, --process_id) are not ported yet either
-(ROADMAP.md, M13).
+A WAV recording at another rate than the model's is resampled, as
+`stt_tpu.transcribe` does. Several processes (--coordinator_address,
+--num_processes above 1, --process_id) are not ported yet (ROADMAP.md,
+M13).
 
 Run: python -m stt_tpu_torch.transcribe --src audio.wav --dst out.tlog \\
        --model_dir exported_model [--scorer_path ...] [--device cpu]

@@ -8,7 +8,13 @@ selection's logic against a stable descending sort of the values, which is
 the order the plain scan (`decode/device.py`) ranks its pool in: value
 descending, ties to the lower flat index. Only the finite keys are ranked;
 -inf ones become dead slots whose fields do not depend on which won.
+The wide instance (byte alphabets) runs the same selection over a pool in
+device memory of up to 512 x 257 keys; its replay reads the limits of both
+instances from the source.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -217,3 +223,102 @@ def test_parent_table_finds_what_the_scan_finds(W):
         want.append(((matches[0] if matches else 0), len(matches)) if last[j] >= 0 else (0, 0))
     assert parents_by_table(ha, hb, pha, phb, live, last, rng) == want
     assert any(h > 1 for _, h in want) and any(h == 0 for _, h in want)
+
+
+# --- the wide instance: byte alphabets, the pool in device memory -----------
+
+CSRC = Path(__file__).resolve().parents[1] / "stt_tpu_torch" / "ops" / "csrc" / "beam_scan.cu"
+
+
+def cu_constant(name: str) -> int:
+    """An `constexpr int` of beam_scan.cu, as the kernel compiles it."""
+    text = CSRC.read_text()
+    expr = re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+    names = {n: cu_constant(n) for n in re.findall(r"[A-Z_]{2,}", expr)}
+    return int(eval(expr, {}, names))
+
+
+def keys_np(values: np.ndarray, flats: np.ndarray) -> np.ndarray:
+    """make_key over arrays: uint64 keys."""
+    bits = (values.astype(np.float32) + np.float32(0.0)).view(np.uint32).astype(np.uint64)
+    hi = np.where(bits & 0x80000000, ~bits & MASK32, bits | 0x80000000)
+    return (hi << np.uint64(32)) | (~flats.astype(np.uint64) & MASK32)
+
+
+def compact_np(values: np.ndarray, threads: int) -> np.ndarray:
+    """The live keys as the wide instance writes them into its pool, warp
+    segment by warp segment (the order of `compact`)."""
+    seg = -(-len(values) // threads) * 32
+    flats = np.concatenate([np.arange(w * seg, min((w + 1) * seg, len(values)))
+                            for w in range(threads // 32)])
+    flats = flats[values[flats] > -np.inf]
+    return keys_np(values[flats], flats)
+
+
+def radix_select_np(keys: np.ndarray, W: int):
+    """radix_select over a uint64 array: the same passes, histograms by
+    bincount."""
+    lo, hi = int(keys.min()), int(keys.max())
+    shift = ((hi ^ lo).bit_length() - 1) // 8 * 8
+    prefix = 0 if shift == 56 else (hi >> (shift + 8)) << (shift + 8)
+    need = W
+    while True:
+        above = shift + 8
+        mine = keys if above == 64 else keys[(keys >> np.uint64(above)) == np.uint64(prefix >> above)]
+        hist = np.bincount(((mine >> np.uint64(shift)) & np.uint64(255)).astype(np.int64),
+                           minlength=256)
+        before = 0
+        for digit in range(255, -1, -1):
+            if before < need <= before + hist[digit]:
+                break
+            before += hist[digit]
+        prefix |= digit << shift
+        need -= before
+        if hist[digit] == need or shift == 0:
+            return prefix, shift
+        shift -= 8
+
+
+def test_limits_of_the_two_instances_come_from_the_source():
+    from stt_tpu_torch.ops import beam_kernel
+
+    assert cu_constant("LN") == beam_kernel.LANES == 128
+    assert cu_constant("WIDE_LN") == beam_kernel.WIDE_LANES == beam_kernel.MAX_CLASSES == 256
+    assert cu_constant("MAX_POOL") == beam_kernel.MAX_POOL
+    assert cu_constant("MAX_SLOTS") == beam_kernel.WIDE_SLOTS
+    assert cu_constant("WIDE_POOL") == 512 * 257 == 131_584  # 1.05 MB of keys an utterance
+    for W, C in ((500, 29), (128, 127), (512, 31), (8, 128), (256, 64), (500, 256)):
+        narrow = C <= cu_constant("LN") - 1 and W * (C + 1) <= cu_constant("MAX_POOL")
+        assert beam_kernel.is_narrow(W, C) == narrow
+        assert W * (C + 1) <= (cu_constant("MAX_POOL") if narrow else cu_constant("WIDE_POOL"))
+    # the wide instance's strike-out bits and masks fit its static shared memory
+    static = (cu_constant("WIDE_POOL") + 31) // 32 * 4 + 5 * cu_constant("WIDE_LN") * 4
+    static += 2 * 256 * 4 + cu_constant("TABLE") * 16 + 32 * 20
+    assert static <= 48 * 1024
+
+
+@pytest.mark.parametrize("kind", ["flat", "peaky", "ties", "mixed"])
+@pytest.mark.parametrize("W,C", [(32, 256), (128, 200), (500, 256), (512, 256)])
+def test_wide_selection_equals_a_stable_descending_sort(kind, W, C):
+    """The wide instance's selection: the live keys compacted into the pool
+    in device memory, the radix select over all of them (128,500 keys at
+    beam 500), the W winners gathered in any order and sorted by the
+    bitonic network: the flat indices of a stable descending sort."""
+    from stt_tpu_torch.ops import beam_kernel
+
+    assert not beam_kernel.is_narrow(W, C) and beam_kernel.supports(W, C)
+    rng = np.random.default_rng(W + C + len(kind))
+    values = pool(kind, W, C, rng)
+    n_pool = len(values)
+    threads = 1024 if n_pool > 8192 else 512
+    live = compact_np(values, threads)
+    assert len(live) == np.isfinite(values).sum()
+    prefix, shift = radix_select_np(live, W)
+    top = live[(live >> np.uint64(shift)) >= np.uint64(prefix >> shift)]
+    assert len(top) == W
+    top = [int(k) for k in rng.permutation(top)]
+    L = 1 << (W - 1).bit_length()
+    got = bitonic_desc(top + [0] * (L - W))[:W]
+    order = np.argsort(-values, kind="stable")[:W]
+    assert [~k & MASK32 for k in got] == order.tolist()
+    assert got == reference(values, W)

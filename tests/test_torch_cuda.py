@@ -551,6 +551,15 @@ BEAM_FIXTURES = [
     # the serving default on flat emissions: the beam fills, then ~14,000 of
     # the 15,000 pool keys stay live every frame and the radix select decides
     (3, 40, 29, 500, 40, 1.0, 15, False, None, ()),
+    # the wide instance: byte alphabets and other pools past 16,384 keys,
+    # the pool in device memory
+    (1, 16, 256, 32, 40, 1.0, 16, True, None, ()),
+    (2, 20, 200, 128, 40, 1.0, 17, False, None, ()),
+    (2, 24, 256, 500, 40, 1.0, 18, False, None, ()),
+    (1, 16, 256, 512, 40, 1.0, 19, True, None, ()),
+    (2, 16, 256, 64, 10, 0.9, 20, False, None, ()),
+    (2, 16, 200, 130, 40, 1.0, 21, False, 0, (1, 2)),
+    (2, 12, 64, 256, 40, 1.0, 22, True, None, ()),
 ]
 
 
@@ -623,6 +632,35 @@ def test_beam_kernel_chunks_and_handover(device, W):
     np.testing.assert_allclose(scores2.cpu().numpy(), scores.cpu().numpy(), rtol=0, atol=1e-4)
 
 
+def test_beam_kernel_wide_chunks_and_handover(device):
+    """The wide instance (beam 500 over 256 classes): chunks of 16 with the
+    state carried equal one launch, and a state made by the plain version
+    mid-stream continues in the kernel."""
+    from stt_tpu_torch.decode.device import beam_scan_plain
+    from stt_tpu_torch.ops import beam_kernel
+
+    B, T, C, W = 2, 40, 256, 500
+    probs, _ = beam_probs(B, T, C, 23, False)
+    probs = probs.to(device)
+    lens = torch.tensor([T, T - 5], dtype=torch.int32, device=device)
+    _, scores, packed = beam_kernel.beam_scan(probs, lens, W)
+    state, parts = None, []
+    for t0 in range(0, T, 16):
+        state, chunk_scores, bp = beam_kernel.beam_scan(
+            probs[:, t0:t0 + 16].contiguous(), (lens - t0).clamp(0, 16), W, state=state)
+        parts.append(bp)
+    assert torch.equal(torch.cat(parts, dim=1), packed)
+    assert torch.equal(chunk_scores, scores)
+    plain, src, char = beam_scan_plain(
+        beam_kernel.state_to_plain(beam_kernel.init_state(B, device, beam_kernel.WIDE_SLOTS), W),
+        probs[:, :16].contiguous(), lens.clamp(max=16), W)
+    _, scores2, bp2 = beam_kernel.beam_scan(
+        probs[:, 16:].contiguous(), (lens - 16).clamp(min=0), W,
+        state=beam_kernel.state_from_plain(plain))
+    assert torch.equal(torch.cat([beam_kernel.pack_bp(src, char), bp2], dim=1), packed)
+    np.testing.assert_allclose(scores2.cpu().numpy(), scores.cpu().numpy(), rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("beam", [8, 500])
 def test_device_decode_stream_on_card_launches_k5(device, tmp_path, beam):
     """A device-decode stream launches K5 once per chunk, at a narrow beam
@@ -666,7 +704,10 @@ def test_shapes_beyond_the_beam_kernel_raise_on_the_card(device):
     with pytest.raises(ValueError, match="on the card"):
         decode_device.ctc_beam_search_decoder_device(probs.to(device), [8], alphabet, beam_size=600)
     with pytest.raises(ValueError, match="on the card"):
-        decode_device.device_beam_search(torch.full((1, 4, 256), 1 / 256, device=device), [4], 16)
+        decode_device.device_beam_search(torch.full((1, 4, 257), 1 / 257, device=device), [4], 16)
+    with pytest.raises(ValueError, match="on the card"):  # a character 255 overflows the plane
+        decode_device.device_beam_search(torch.full((1, 4, 256), 1 / 256, device=device), [4],
+                                         16, blank_id=0)
     assert decode_device.scan.plain_scans == before
 
 
@@ -790,17 +831,26 @@ def test_evaluate_on_card_matches_cpu(device, tmp_path, mode):
     np.testing.assert_allclose([r.loss for r in got], [r.loss for r in want], rtol=1e-4)
 
 
-def test_evaluate_full_in_bytes_mode_raises_on_card(device, tmp_path):
-    """K5 takes at most 127 classes: bytes mode's 256 raise on the card,
-    where stt_tpu runs its XLA scan (ROADMAP.md, section 3)."""
+def test_evaluate_full_in_bytes_mode_on_card_matches_cpu(device, tmp_path):
+    """Bytes mode (256 classes) at beam 500 runs in K5's wide instance on the
+    card: transcripts and WER those of the CPU, whose plain scan
+    tests/test_torch_evaluate.py holds against stt_tpu; no plain scan."""
+    import copy
+
     from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.decode import device as decode_device
     from stt_tpu_torch.evaluate import evaluate
 
     net, _, _, csv = m9_setup(tmp_path, n_out=256, bytes_mode=True)
     config = SttConfig(test_files=[csv], bytes_output_mode=True, n_hidden=64,
                        test_batch_size=2, export_beam_width=500, device_decode="full")
-    with pytest.raises(ValueError, match="on the card"):
-        evaluate(config, model=net)
+    before, plain = kernel_launches(), decode_device.scan.plain_scans
+    [got] = evaluate(config, model=copy.deepcopy(net))
+    assert kernel_launches()["k5"] > before["k5"]
+    assert decode_device.scan.plain_scans == plain
+    [want] = evaluate(config, model=net, device="cpu")
+    assert [(r.res, r.wer, r.cer) for r in got] == [(r.res, r.wer, r.cer) for r in want]
+    assert any(r.res for r in got)
 
 
 @pytest.mark.parametrize("cutoff_top_n,cutoff_prob", [(8, 0.99), (5, 1.0), (40, 1.0)])

@@ -137,8 +137,12 @@ def test_init_state_masks_and_unpack_equal_jax():
     assert beam_kernel.supports(500, 29)  # the serving default beam, English
     assert beam_kernel.supports(512, 31) and beam_kernel.supports(256, 63)
     assert not beam_kernel.supports(513, 8)
-    assert not beam_kernel.supports(256, 64)  # the pool passes 16,384 candidates
-    assert not beam_kernel.supports(64, 256)  # byte alphabets
+    assert beam_kernel.supports(256, 64)  # past 16,384 candidates: the wide instance
+    assert beam_kernel.supports(64, 256) and beam_kernel.supports(512, 256)  # byte alphabets
+    assert not beam_kernel.supports(64, 257)
+    assert not beam_kernel.supports(64, 256, blank_id=0)  # a character 255 overflows the plane
+    assert beam_kernel.is_narrow(500, 29) and beam_kernel.is_narrow(128, 127)
+    assert not beam_kernel.is_narrow(256, 64) and not beam_kernel.is_narrow(8, 128)
 
 
 def test_state_round_trip_between_kernel_layout_and_plain():
@@ -287,8 +291,11 @@ def test_shapes_beyond_the_kernel_take_the_plain_scan_and_count():
     with pytest.raises(ValueError, match="on the card"):
         device.check_scan_shape(600, 5, "cuda")
     with pytest.raises(ValueError, match="on the card"):
-        device.check_scan_shape(64, 256, torch.device("cuda", 0))
+        device.check_scan_shape(64, 257, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="on the card"):
+        device.check_scan_shape(64, 256, "cuda", blank_id=3)
     device.check_scan_shape(500, 29, "cuda")
+    device.check_scan_shape(500, 256, "cuda")
     device.check_scan_shape(600, 5, "cpu")
 
 
@@ -323,6 +330,26 @@ def test_wide_beams_go_through_the_wrapper_and_equal_the_xla_scan(W, C, top_n, c
         parts.append(bp[:, : min(6, 10 - t0)])
     assert torch.equal(torch.cat(parts, dim=1), packed)
     assert torch.equal(scores2, scores)
+
+
+@pytest.mark.parametrize("W,C", [(32, 256), (160, 200)])
+def test_byte_alphabets_go_through_the_wrapper_and_equal_the_xla_scan(W, C):
+    """Up to 256 classes the shape is the kernel's (its wide instance on the
+    card), so on the CPU it takes the wrapper's plain version, not the
+    counted plain scan; the backpointers equal stt_tpu's XLA scan, where
+    stt_tpu sends shapes its Pallas kernel does not take."""
+    probs, lens = fixture_probs(2, 10, C, 70 + W, False)
+    before = device.scan.plain_scans
+    _, scores, packed = device.scan(torch.from_numpy(probs), torch.from_numpy(lens), W, 40, 1.0)
+    assert device.scan.plain_scans == before
+    assert packed.dtype == (torch.int16 if W <= beam_kernel.WSLOTS else torch.int32)
+    s_x, src_x, char_x = jax_device._device_beam_scan(
+        jnp.asarray(probs), jnp.asarray(lens), W, 40, 1.0, None, ())
+    src, char = beam_kernel.unpack_bp(packed.numpy())
+    np.testing.assert_array_equal(src, np.asarray(src_x))
+    np.testing.assert_array_equal(char, np.asarray(char_x))
+    assert char.max() <= C - 2  # the blank, last, is never a character
+    assert_scores_close(scores.numpy(), s_x)
 
 
 def test_host_arrays_go_to_the_card_unless_the_caller_asks_for_the_cpu():

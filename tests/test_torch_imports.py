@@ -47,10 +47,14 @@ def test_every_module_imports_without_jax_or_stt_tpu():
               "stt_tpu_torch.evaluate_from_csv", "stt_tpu_torch.evaluate_export",
               "stt_tpu_torch.export", "stt_tpu_torch.transcribe", "stt_tpu_torch.data.vad"}
         assert m9 <= set(names), m9 - set(names)
+        p6 = {"stt_tpu_torch.data." + m for m in (
+            "audio", "helpers", "flac", "ogg", "vorbis", "sph", "opus", "mp3", "augmentations",
+            "feature_cache", "stm", "auto_input")}
+        assert p6 <= set(names), p6 - set(names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 56
+    assert int(proc.stdout.strip()) >= 67
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():

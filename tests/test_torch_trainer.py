@@ -11,7 +11,9 @@ CPU at a tiny width:
   continues the step counter, --force_initialize_learning_rate, best_dev,
   early stop and the plateau;
 - flag parsing against `stt_tpu.config.parse_flags`, the flags that are
-  not ported, and `python -m stt_tpu_torch.train`.
+  not ported, and `python -m stt_tpu_torch.train`;
+- SDB sources and augmented batches against stt_tpu's, and a CPU run with
+  augmentations, the feature cache, input workers and a profiler trace.
 """
 
 import json
@@ -110,15 +112,44 @@ def test_create_batches_matches_jax(dataset, kw):
 
 
 def test_sources_merge_and_refuse_what_is_not_ported(dataset):
+    """Sources merge by duration; an SDB of the CSV's samples reads as
+    stt_tpu reads it, and augmented batches from it equal stt_tpu's
+    (labels exactly, features within FEATURE_TOL); an unknown source type
+    is refused by both packages."""
+    from stt_tpu.data.augmentations import parse_augmentations as jax_parse_augmentations
+    from stt_tpu.data.sources import samples_from_sources as jax_samples_from_sources
+    from stt_tpu_torch.data.augmentations import parse_augmentations
+    from stt_tpu_torch.data.sources import SDBWriter
+
     merged = list(samples_from_sources([dataset["train"], dataset["dev"]]))
     assert len(merged) == 10
     hints = [s.duration_hint for s in merged]
     assert hints == sorted(hints)
-    with pytest.raises(NotImplementedError, match="P6"):
-        list(samples_from_sources([str(dataset["dir"] / "x.sdb")]))
-    with pytest.raises(NotImplementedError, match="P6"):
-        list(create_batches([dataset["train"]], Alphabet(dataset["alphabet"]),
-                            augmentations=["volume"]))
+    sdb = str(dataset["dir"] / "train.sdb")
+    with SDBWriter(sdb) as writer:
+        for sample in samples_from_sources([dataset["train"]]):
+            writer.add(sample)
+    got, want = list(samples_from_sources([sdb])), list(jax_samples_from_sources([sdb]))
+    assert [(s.sample_id, s.transcript, s.rate) for s in got] == [
+        (s.sample_id, s.transcript, s.rate) for s in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.audio, b.audio)
+    specs = ["volume[p=0.8,dbfs=-20:-3]", "frequency_mask[n=2,size=3]", "time_mask[n=1,size=40]"]
+    kw = dict(batch_size=3, train_phase=True, epoch=1, total_epochs=3)
+    want = list(jax_create_batches([sdb], JaxAlphabet(dataset["alphabet"]), JaxFeatureConfig(),
+                                   augmentations=jax_parse_augmentations(specs), **kw))
+    got = list(create_batches([sdb], Alphabet(dataset["alphabet"]), FeatureConfig(),
+                              augmentations=parse_augmentations(specs), **kw))
+    assert [ids for _, ids in got] == [ids for _, ids in want]
+    for (batch, _), (jbatch, _) in zip(got, want):
+        np.testing.assert_array_equal(batch.labels.numpy(), np.asarray(jbatch.labels))
+        np.testing.assert_array_equal(batch.feature_lengths.numpy(),
+                                      np.asarray(jbatch.feature_lengths))
+        np.testing.assert_allclose(batch.features.numpy(), np.asarray(jbatch.features),
+                                   rtol=0, atol=FEATURE_TOL)
+    for samples in (samples_from_sources, jax_samples_from_sources):
+        with pytest.raises(ValueError, match="unknown dataset source type"):
+            list(samples([str(dataset["dir"] / "x.json")]))
 
 
 def test_training_loss_falls_and_checkpoints_are_laid_out(dataset):
@@ -227,16 +258,59 @@ def test_flags_parse_like_the_jax_package():
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["--augment", "volume"], "P6"),
-    (["--feature_cache", "/tmp/c"], "P6"),
+    (["--graph_augs_on_device", "true"], "M12"),
+    (["--coordinator_address", "localhost:1234"], "M13"),
     (["--export_tflite", "true"], "M15"),
     (["--num_processes", "2"], "M13"),
     (["--n_model_parallel", "2"], "M13"),
-    (["--profile_dir", "/tmp/p"], "P6"),
+    (["--process_id", "0"], "M13"),
 ])
 def test_flags_of_unported_parts_raise(argv, where):
     with pytest.raises(NotImplementedError, match=where):
         parse_flags(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--augment", "volume", "--augment", "tempo[p=0.5,factor=0.9:1.1]"],
+    ["--feature_cache", "/tmp/c"],
+    ["--cache_for_epochs", "2", "--input_workers", "4", "--prefetch_batches", "3"],
+    ["--profile_dir", "/tmp/p", "--profile_steps", "3"],
+])
+def test_input_and_profiler_flags_parse_like_the_jax_package(argv):
+    got, want = parse_flags(argv).to_dict(), jax_parse_flags(argv).to_dict()
+    assert got == want
+    assert any(got[k] != SttConfig().to_dict()[k] for k in got)
+
+
+def test_training_with_augmentations_feature_cache_and_profiler(dataset):
+    """Three epochs with every host augmentation but codec and overlay, the
+    feature cache (filled in epoch 0, served in epoch 1, dropped at epoch 2
+    by cache_for_epochs 2), 3 input workers and a profiler trace of the
+    first steps: losses are finite, the cache file holds every row, the
+    trace exists."""
+    cache = dataset["dir"] / "features.cache"
+    profile = dataset["dir"] / "profile"
+    summary = dataset["dir"] / "summary"
+    augment = ["reverb[p=0.5,delay=20,decay=10]", "resample[p=0.5,rate=8000]",
+               "volume[dbfs=-20:-3]", "pitch[p=0.5,pitch=0.9:1.1]", "tempo[p=0.5,factor=0.9:1.1]",
+               "warp[p=0.5]", "frequency_mask[n=2,size=3]", "time_mask[n=1,size=40]",
+               "dropout[p=0.5,rate=0.05]", "add[p=0.5,stddev=0.1]", "multiply[p=0.5,stddev=0.05]"]
+    config = tiny_config(dataset, n_hidden=64, epochs=3, augment=augment,
+                         feature_cache=str(cache), cache_for_epochs=2, input_workers=3,
+                         prefetch_batches=2, profile_dir=str(profile), profile_steps=2,
+                         summary_dir=str(summary))
+    state = train(config, device="cpu")
+    assert state.step == 1 + 3 * 3
+    with open(summary / "scalars.jsonl") as f:
+        losses = [r["train/step_loss"] for r in map(json.loads, f) if "train/step_loss" in r]
+    assert len(losses) == 9 and np.isfinite(losses).all()
+    assert cache.is_file()
+    from stt_tpu.data.feature_cache import FeatureCache as JaxFeatureCache
+
+    assert JaxFeatureCache(str(cache)).complete  # epoch 2 refilled it; stt_tpu reads it
+    trace = profile / "trace.json"
+    assert trace.is_file()
+    assert json.loads(trace.read_text())["traceEvents"]
 
 
 def test_scorer_path_passes_preflight_or_raises(tmp_path):
