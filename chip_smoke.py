@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of stt_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k1,k3k4,decoder,evaluation,input]
+    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k5,pool,augment,parallel]
 
 1. Setup: prints the card's name and power limit, turns TF32 off, builds
    every CUDA kernel of the package from its sources (build/kernels/), one
@@ -31,15 +31,21 @@
      plan, its streaming floor and the time per step beside K1's in bf16;
    - K5, the beam scan, in its narrow instance (pool in shared memory) at
      (W, C) in {(8, 8), (32, 29), (128, 29), (128, 127), (500, 29), (512,
-     31)}, B in {1, 16}, T in {16, 200}, and in its wide instance (pool in
+     31)}, B in {1, 16}, T in {16, 200}, in its wide instance (pool in
      device memory, byte alphabets) at (W, C) in {(32, 256), (128, 200),
-     (500, 256), (512, 256)}, B in {1, 8}, T in {16, 240}; peaky and flat
-     emissions, one utterance shorter than T; the cutoff branches, an
-     external class layout, chunks of 16 against one launch, and a state
-     handed from the plain version to the kernel mid-stream, at beam 32 and
-     500 over 29 and 256 classes. Backpointers must be equal. Then where a
-     frame's time goes at beam 32 and 500 (a variant built with
-     K5_PHASE_CLOCKS: SM cycles by phase) and the most live keys a frame had.
+     (500, 256), (512, 256)}, and in its huge instance (every other shape:
+     its arrays in shared memory or a workspace in device memory) at (W, C)
+     in {(1024, 29), (500, 1000), (500, 4096), (64, 300)}, both at B in
+     {1, 8}, T in {16, 240}; peaky and flat emissions, one utterance shorter
+     than T; the cutoff branches (cutoff_top_n below and above C), external
+     class layouts, 256 classes with the blank first, chunks of 16 against
+     one launch, and a state handed from the plain version to the kernel
+     mid-stream, at beams 32 to 1,024 over 29 to 4,096 classes.
+     Backpointers must be equal. Probabilities over 4,096 classes through
+     the batch and the streaming device decoders at beam 500 must give the
+     plain scan's transcripts. Then where a frame's time goes at beam 32
+     and 500 (a variant built with K5_PHASE_CLOCKS: SM cycles by phase) and
+     the most live keys a frame had.
 3. Serving phase: a full-width DeepSpeech (the 2048 geometry, 29 outputs)
    with random weights from a seeded generator, saved as an artifact and
    opened with `Model(dir)` on the card; answers `stt` on three utterances,
@@ -109,9 +115,31 @@
    trace names K3's and K4's kernels; 8 workers' batches equal the serial
    ones; the host featurize rate, serial and on 8 threads, beside the
    train step's.
+4d. Pool phase (also `--phases pool`): `StreamPool` of the full-width
+   model at 8 slots, nine utterances fed in 320 ms pieces with staggered
+   lifetimes and a freed slot reused, with host slots (beam 32) and
+   device-decode slots (beam 32, 500): pooled transcripts equal to single
+   streams', one K1 launch a round, K5 in the device-decode runs; rounds,
+   K5 calls a round, wall ms a cycle against the 320 ms cadence, and one
+   profiled round's idle share.
+4e. Augment phase (also `--phases augment`): `train(config)` of the
+   full-width model with --graph_augs_on_device on the input phase's
+   sources and augmentations (B = 16, one epoch; K3 and K4 every step);
+   one batch's device pass on the card against the CPU (lengths equal,
+   features within AUGMENT_TOL, the random family's gates closed; with them
+   open the card's pass repeats); the pass's time, the augmented step's
+   audio-s/s, and the host featurize rate of the spectrogram path beside
+   the host path's.
+4f. Parallel phase (also `--phases parallel`): two ranks of this script on
+   the one card over gloo (NCCL refuses two ranks on one card) train the
+   full-width model for one epoch, B = 16 (8 rows a rank), dropout 0: their
+   losses equal each other and, within PARALLEL_LOSS_RTOL, one rank's on the
+   global batch, as the merged dev loss; step ms of both; then a group of
+   one rank on NCCL steps as a step without a group.
 5. Prints one JSON line listing every kernel (launches counted over the
-   serving, training, evaluation and input phases' runs), the card's name and
-   power limit, and as the last line {"ok": true, "device": {...}}.
+   serving, training, evaluation, input, pool, augment and parallel
+   phases' runs), the card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
 and prints no result. --out writes the full record as JSON.
@@ -692,22 +720,22 @@ def compare_beam(name: str, probs, lens, W: int, kernel_out, plain_out, params: 
     score_err = (scores[finite] - want[finite]).abs().max().item() if finite.any() else 0.0
     if not score_err <= K5_SCORE_TOL:
         raise AssertionError(f"{name}: scores differ by {score_err} > {K5_SCORE_TOL}")
-    want_packed = beam_kernel.pack_bp(src, char)
-    if torch.equal(packed, want_packed):
+    got_src, got_char = bp_pair(packed)
+    if torch.equal(got_src, src) and torch.equal(got_char, char):
         return score_err
-    b, t, k = (int(v) for v in (packed != want_packed).nonzero()[0])
+    b, t, k = (int(v) for v in ((got_src != src) | (got_char != char)).nonzero()[0])
     upto = (probs[:, :t + 1].contiguous(), lens.clamp(max=t + 1), W, *params)
     if state is None:
         state = beam_kernel.init_state(probs.shape[0], probs.device, beam_kernel.state_slots(W))
     _, s_kernel, _ = beam_kernel.beam_scan(*upto, state=state)
     st, _, _ = beam_scan_plain(beam_kernel.state_to_plain(state, W), *upto)
     s_plain = logaddexp(st[0], st[1])
-    got_sc = beam_kernel.unpack_bp(packed[b, t, k].cpu().numpy())
+    got_sc = (int(got_src[b, t, k]), int(got_char[b, t, k]))
     print(f"{name}: first difference at utterance {b} frame {t} slot {k}: kernel (src, char) "
           f"{got_sc} value {s_kernel[b, k].item()!r}, plain ({int(src[b, t, k])}, "
           f"{int(char[b, t, k])}) value {s_plain[b, k].item()!r}", flush=True)
     apart = ulps_apart(s_kernel[b, k], s_plain[b, k])
-    walked = [beam_results(scores[i], *beam_kernel.unpack_bp(packed[i].cpu().numpy()), W)
+    walked = [beam_results(scores[i], got_src[i].cpu().numpy(), got_char[i].cpu().numpy(), W)
               == beam_results(want[i], src[i].cpu().numpy(), char[i].cpu().numpy(), W)
               for i in range(probs.shape[0])]
     if apart > K5_TIE_ULPS or not all(walked):
@@ -715,18 +743,41 @@ def compare_beam(name: str, probs, lens, W: int, kernel_out, plain_out, params: 
     return score_err
 
 
+def bp_pair(bp) -> tuple:
+    """K5's backpointers as the (bp_src, bp_char) int32 pair on the card:
+    the huge instance's pair as it is, the packed plane unpacked."""
+    if isinstance(bp, tuple):
+        return bp
+    packed = bp.to(torch.int32)
+    return packed >> 8, (packed & 0xFF) - 1
+
+
+def cat_bp(parts: list):
+    """Chunks' backpointers joined along time, in their own form."""
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(2))
+    return torch.cat(parts, dim=1)
+
+
+def same_bp(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(bp_pair(a), bp_pair(b)))
+
+
 def beam_results(scores, src, char, W: int) -> list:
     """(tokens, timesteps) of every live candidate, best first."""
     from stt_tpu_torch.alphabet import Alphabet
     from stt_tpu_torch.decode.device import rebuild_results
 
-    alphabet = Alphabet().init_from_labels([chr(33 + i) for i in range(255)])
+    alphabet = Alphabet().init_from_labels([chr(0x4E00 + i) for i in range(8192)])
     found = rebuild_results(scores.cpu().numpy(), src, char, alphabet, W)
     return [(r.tokens, r.timesteps) for r in found]
 
 
 K5_NARROW = ((8, 8), (32, 29), (128, 29), (128, 127), (500, 29), (512, 31))  # pool in shared memory
 K5_WIDE = ((32, 256), (128, 200), (500, 256), (512, 256))  # pool in device memory
+# the huge instance: a beam past 512, character alphabets past 256 classes
+# (cutoff_top_n 40 above C at 29 classes, below it at 300 and more)
+K5_HUGE = ((1024, 29), (500, 1000), (500, 4096), (64, 300))
 
 
 def k5_phase(device, seed: int) -> list:
@@ -745,7 +796,8 @@ def k5_phase(device, seed: int) -> list:
     records = []
     narrow = [((W, C), B, T) for W, C in K5_NARROW for B in (1, 16) for T in (16, 200)]
     wide = [((W, C), B, T) for W, C in K5_WIDE for B in (1, 8) for T in (16, 240)]
-    for (W, C), B, T in narrow + wide:
+    huge = [((W, C), B, T) for W, C in K5_HUGE for B in (1, 8) for T in (16, 240)]
+    for (W, C), B, T in narrow + wide + huge:
         for peaky in (True, False):
             probs, lens = beam_inputs(B, T, C, peaky, seed + W + C + B + T, device)
             name = f"K5 W={W} C={C} B={B} T={T} {'peaky' if peaky else 'flat'}"
@@ -765,12 +817,13 @@ def k5_phase(device, seed: int) -> list:
             device_ms = kernel_device_ms(
                 lambda: beam_kernel.beam_scan(probs, lens, W, *params), "beam_scan_kernel", reps)
             state_bytes = (2 + 5) * B * beam_kernel.state_slots(W) * 4 + B * 4
-            bp_bytes = B * T * W * (2 if W <= beam_kernel.WSLOTS else 4)
+            kind = beam_kernel.instance(W, C)
+            bp_bytes = B * T * W * (8 if kind == "huge" else 2 if W <= beam_kernel.WSLOTS else 4)
             lanes = beam_kernel._masks(C, C - 1, (), True)[0].size
             moved = B * T * C * 4 + B * 4 + 2 * lanes * 4 + 2 * state_bytes + bp_bytes
             bound, bound_by = bound_ms(moved, 0, torch.float32)
             rec = {"W": W, "C": C, "B": B, "T": T, "emissions": "peaky" if peaky else "flat",
-                   "instance": "narrow" if beam_kernel.is_narrow(W, C) else "wide",
+                   "instance": kind,
                    "max_abs_err": err, "tol": K5_SCORE_TOL, "backpointers": "equal",
                    "ms": ms, "us_per_frame": ms / T * 1e3, "device_ms": device_ms,
                    "device_us_per_frame": device_ms / T * 1e3, "plain_ms": plain_ms,
@@ -785,40 +838,97 @@ def k5_phase(device, seed: int) -> list:
         ("blank_id=0 ignored=(1, 2)", 32, 32, (40, 1.0, 0, (1, 2))),
         ("wide cutoff_top_n=10 cutoff_prob=0.9", 256, 64, (10, 0.9, None, ())),
         ("wide blank_id=0 ignored=(1, 2)", 200, 130, (40, 1.0, 0, (1, 2))),
+        ("huge 256 classes blank_id=0", 256, 128, (40, 1.0, 0, ())),
+        ("huge 256 classes blank_id=0 at beam 500", 256, 500, (40, 1.0, 0, ())),
+        ("huge 256 classes blank_id=0 cutoff_top_n above C", 256, 128, (300, 1.0, 0, ())),
+        ("huge cutoff_top_n above C", 300, 64, (400, 1.0, None, ())),
+        ("huge cutoff_top_n above C at 1,000 classes", 1000, 500, (1200, 1.0, None, ())),
+        ("huge cutoff_top_n above C at 4,096 classes", 4096, 500, (5000, 1.0, None, ())),
+        ("huge cutoff_top_n=10 cutoff_prob=0.9", 4096, 500, (10, 0.9, None, ())),
+        ("huge blank_id=0 ignored=(1, 2)", 1000, 130, (40, 1.0, 0, (1, 2))),
+        ("huge beam 1024 cutoff_top_n=10 cutoff_prob=0.9", 29, 1024, (10, 0.9, None, ())),
+        ("huge beam 1024 cutoff_top_n below C", 29, 1024, (20, 1.0, None, ())),
     ):
         for peaky in (True, False):
             probs, lens = beam_inputs(4, 48, C, peaky, seed + 100 + C + len(label), device)
             out = beam_kernel.beam_scan(probs, lens, W, *params)
             compare_beam(f"K5 {label} {'peaky' if peaky else 'flat'}", probs, lens, W, out,
                          plain(probs, lens, W, *params), params)
-    print("k5 branches: backpointers equal (cutoff_prob, cutoff_top_n alone, external layout; "
-          "narrow and wide)", flush=True)
+    print("k5 branches: backpointers equal (cutoff_prob, cutoff_top_n alone and above C, "
+          "external layouts, 256 classes with blank 0; narrow, wide and huge)", flush=True)
 
     # chunks of 16 with the state carried against one launch over all T,
     # and a state handed from the plain version to the kernel mid-stream,
     # in both instances
-    for W, C in ((32, 29), (500, 29), (32, 256), (500, 256)):
+    for W, C, blank_id in ((32, 29, None), (500, 29, None), (32, 256, None), (500, 256, None),
+                           (1024, 29, None), (500, 1000, None), (500, 4096, None), (64, 300, None),
+                           (128, 256, 0)):
         B, T = 4, 64
+        params = (40, 1.0, blank_id, ())
         probs, lens = beam_inputs(B, T, C, True, seed + 200 + W, device)
-        _, scores, packed = beam_kernel.beam_scan(probs, lens, W)
+        _, scores, packed = beam_kernel.beam_scan(probs, lens, W, *params)
         state, parts = None, []
         for t0 in range(0, T, 16):
             state, chunk_scores, bp = beam_kernel.beam_scan(
-                probs[:, t0:t0 + 16].contiguous(), (lens - t0).clamp(0, 16), W, state=state)
+                probs[:, t0:t0 + 16].contiguous(), (lens - t0).clamp(0, 16), W, *params,
+                state=state)
             parts.append(bp)
-        if not (torch.equal(torch.cat(parts, dim=1), packed) and torch.equal(chunk_scores, scores)):
+        if not (same_bp(cat_bp(parts), packed) and torch.equal(chunk_scores, scores)):
             raise AssertionError(f"K5 W={W} C={C}: chunks of 16 differ from one launch over all frames")
-        half = plain(probs[:, :32].contiguous(), lens.clamp(max=32), W)
+        half = plain(probs[:, :32].contiguous(), lens.clamp(max=32), W, *params)
         rest = (probs[:, 32:].contiguous(), (lens - 32).clamp(min=0), W)
-        handed = beam_kernel.beam_scan(*rest, state=beam_kernel.state_from_plain(half[0]))
-        carried = plain(*rest, state=beam_kernel.state_from_plain(half[0]))
+        handed = beam_kernel.beam_scan(*rest, *params, state=beam_kernel.state_from_plain(half[0]))
+        carried = plain(*rest, *params, state=beam_kernel.state_from_plain(half[0]))
         compare_beam(f"K5 W={W} C={C} state handed from the plain version", *rest, handed, carried,
-                     (40, 1.0, None, ()), state=beam_kernel.state_from_plain(half[0]))
-        if not torch.equal(torch.cat([beam_kernel.pack_bp(half[1], half[2]), handed[2]], dim=1), packed):
+                     params, state=beam_kernel.state_from_plain(half[0]))
+        if not same_bp(cat_bp([(half[1], half[2]), bp_pair(handed[2])]), packed):
             raise AssertionError(f"K5 W={W} C={C}: plain first half + kernel second half differs from one launch")
-    print("k5 chunked == one launch; plain -> kernel hand-over mid-stream equal (beam 32 and 500, "
-          "29 and 256 classes)", flush=True)
+    print("k5 chunked == one launch; plain -> kernel hand-over mid-stream equal (beam 32, 64, "
+          "128, 500 and 1024; 29, 256 (blank last and first), 300, 1,000 and 4,096 classes)",
+          flush=True)
+    large_alphabet_decodes(device, seed)
     return records
+
+
+def large_alphabet_decodes(device, seed: int) -> None:
+    """Probabilities over a 4,096-class alphabet (4,095 characters and the
+    blank) through `ctc_beam_search_decoder_device` and a
+    `DeviceStreamingDecoder` fed in chunks of 16, at beam 500, on the card
+    (K5's huge instance): their transcripts, tokens and timesteps must be
+    those of the plain scan on the same probabilities."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.decode import device as decode_device
+    from stt_tpu_torch.ops import beam_kernel
+
+    C, W, B, T = 4096, 500, 2, 64
+    alphabet = Alphabet().init_from_labels([chr(0x4E00 + i) for i in range(C - 1)])
+    probs, lens = beam_inputs(B, T, C, True, seed + 300, device)
+    before = beam_kernel.beam_scan.launches
+    got = decode_device.ctc_beam_search_decoder_device(probs, lens.tolist(), alphabet,
+                                                       beam_size=W, num_results=3)
+    streams = []
+    for i in range(B):
+        dec = decode_device.DeviceStreamingDecoder(alphabet, W)
+        n = int(lens[i])
+        for t0 in range(0, T, 16):
+            dec.next(probs[i, t0:t0 + 16], n_valid=max(0, min(16, n - t0)))
+        streams.append(dec.decode(3))
+    launches = beam_kernel.beam_scan.launches - before
+    st, src, char = decode_device.beam_scan_plain(
+        decode_device.init_beam_state(B, W, device), probs, lens, W, 40, 1.0)
+    scores = decode_device.logaddexp(st[0], st[1]).cpu().numpy()
+    for i in range(B):
+        want = decode_device.rebuild_results(scores[i], src[i].cpu().numpy(),
+                                             char[i].cpu().numpy(), alphabet, 3)
+        for results in (got[i], streams[i]):
+            if [(r.transcript, r.tokens, r.timesteps) for r in results] != \
+                    [(r.transcript, r.tokens, r.timesteps) for r in want]:
+                raise AssertionError(f"4,096 classes, utterance {i}: {results} differ from the "
+                                     f"plain scan's {want}")
+    if launches != 1 + B * T // 16:
+        raise AssertionError(f"4,096 classes: {launches} K5 launches, {1 + B * T // 16} expected")
+    print(f"k5 4,096 classes at beam 500: batch and streaming device decodes equal the plain "
+          f"scan's transcripts ({launches} K5 launches)", flush=True)
 
 
 def kernel_device_ms(fn, name: str, reps: int) -> float:
@@ -860,7 +970,7 @@ def k5_against(device, seed: int, other_source: str) -> list:
                     times, results = {"other": [], "this": []}, {}
                     for turn in ("other", "this", "this", "other"):
                         fn = other if turn == "other" else this
-                        beam_kernel._library_function = lambda define="", wide=False, fn=fn: fn
+                        beam_kernel._library_function = lambda define="", kind="narrow", fn=fn: fn
                         results[turn] = run()[2]
                         times[turn].append(kernel_device_ms(run, "beam_scan_kernel", 10 if T <= 16 else 3))
                     if not torch.equal(results["other"], results["this"]):
@@ -896,7 +1006,7 @@ def k5_split(device, seed: int, records: list) -> list:
     kept = beam_kernel._library_function
     instrumented = kept("K5_PHASE_CLOCKS")
     split = []
-    beam_kernel._library_function = lambda define="", wide=False: instrumented
+    beam_kernel._library_function = lambda define="", kind="narrow": instrumented
     try:
         for W, C in ((BEAM_WIDTH, 29), (500, 29)):
             for peaky in (True, False):
@@ -1351,14 +1461,11 @@ def counted_wrappers() -> dict:
 def run_counted(name: str, fn, must: tuple) -> tuple:
     """fn() with every launch count set to 0 just before it and read just
     after, timed on the host between synchronizes: it must launch each
-    kernel in `must` and none of the others, and no plain beam scan.
-    Returns (fn's result, its wall ms, its launches by kernel)."""
-    from stt_tpu_torch.decode import device as decode_device
-
+    kernel in `must` and none of the others. Returns (fn's result, its wall
+    ms, its launches by kernel)."""
     wrappers = counted_wrappers()
     for wrapper in wrappers.values():
         wrapper.launches = 0
-    decode_device.scan.plain_scans = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     result = fn()
@@ -1368,8 +1475,6 @@ def run_counted(name: str, fn, must: tuple) -> tuple:
     for key, n in launches.items():
         if (n > 0) != (key in must):
             raise AssertionError(f"{name}: {key} launched {n} times, must launch: {must}")
-    if decode_device.scan.plain_scans:
-        raise AssertionError(f"{name} ran the plain beam scan")
     return result, ms, launches
 
 
@@ -1614,6 +1719,483 @@ def serving_phase(device, seed: int, work_dir: str, scorers: dict) -> dict:
         "card_transcript_equals_cpu": text_gpu == text_cpu,
         "intermediate_decodes": len(partial),
     }
+
+
+POOL_SLOTS = 8
+POOL_PIECE_S = 0.32  # audio fed to each live slot per cycle: the stream cadence
+POOL_RUNS = (("host slots, beam 32", False, BEAM_WIDTH), ("device-decode slots, beam 32", True,
+             BEAM_WIDTH), ("device-decode slots, beam 500", True, 500))
+
+
+def drive_pool(pool, audios: list, piece: int) -> tuple:
+    """Staggered lifetimes: stream i (of the first POOL_SLOTS) joins at cycle
+    i // 2; each cycle feeds every live stream its next `piece` samples and
+    finishes the streams whose audio ran out; when the first finishes, one
+    more stream takes its slot. Returns (transcripts by utterance, each
+    cycle's wall ms, the slot the last stream got)."""
+    streams, fed, texts, cycle_ms = {}, {}, {}, []
+    waiting = list(range(len(audios)))
+    reused_slot = None
+    cycle = 0
+    while waiting or streams:
+        while waiting and waiting[0] < POOL_SLOTS and waiting[0] // 2 <= cycle:
+            i = waiting.pop(0)
+            streams[i], fed[i] = pool.create_stream(), 0
+        start = time.perf_counter()
+        for i, stream in list(streams.items()):
+            stream.feed_audio_content(audios[i][fed[i]:fed[i] + piece])
+            fed[i] += piece
+        for i, stream in list(streams.items()):
+            if fed[i] >= len(audios[i]):
+                texts[i] = stream.finish_stream()
+                del streams[i]
+                if waiting and waiting[0] >= POOL_SLOTS:  # the extra stream reuses the slot
+                    j = waiting.pop(0)
+                    streams[j], fed[j] = pool.create_stream(), 0
+                    reused_slot = (stream._slot, streams[j]._slot)
+        torch.cuda.synchronize()
+        cycle_ms.append((time.perf_counter() - start) * 1e3)
+        cycle += 1
+    return [texts[i] for i in range(len(audios))], cycle_ms, reused_slot
+
+
+def k1_idle_rows(device, seed: int, H: int) -> dict:
+    """K1 as a pool round calls it, at B = 8 slots and the full width, with
+    half the rows at seq_len 0 throughout: those rows' output must be 0 and
+    their state the initial one, bit for bit, and the others within K1_TOL of
+    the plain version."""
+    from stt_tpu_torch.models.lstm import recurrence
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence
+
+    gen = torch.Generator().manual_seed(seed + 9)
+    w_h = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) * (6.0 / (6 * H)) ** 0.5).to(device)
+    x_proj = (torch.randn(16, POOL_SLOTS, 4 * H, generator=gen) * 0.5).to(device)
+    c0 = (torch.randn(POOL_SLOTS, H, generator=gen) * 0.1).to(device)
+    h0 = ((torch.rand(POOL_SLOTS, H, generator=gen) * 2 - 1) * 0.1).to(device)
+    seq = torch.tensor([16, 0] * (POOL_SLOTS // 2), dtype=torch.int32, device=device)
+    out, (c, h) = lstm_recurrence(x_proj, w_h, c0, h0, seq)
+    want, (c_ref, h_ref) = recurrence(x_proj, w_h, c0, h0, seq)
+    idle = seq == 0
+    if not (torch.equal(out[:, idle], torch.zeros_like(out[:, idle]))
+            and torch.equal(c[idle], c0[idle]) and torch.equal(h[idle], h0[idle])):
+        raise AssertionError("K1: rows at seq_len 0 moved their state or emitted")
+    err = max((out - want).abs().max().item(), (c - c_ref).abs().max().item(),
+              (h - h_ref).abs().max().item())
+    if not err <= K1_TOL[torch.float32]:
+        raise AssertionError(f"K1 with idle rows: max abs diff {err}")
+    rec = {"B": POOL_SLOTS, "T": 16, "H": H, "idle_rows": int(idle.sum()),
+           "idle_rows_frozen": True, "max_abs_err": err}
+    print("pool k1_idle_rows", json.dumps(rec), flush=True)
+    return rec
+
+
+def pool_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """`StreamPool` of the full-width model (random weights from `seed`) at
+    S = 8 slots on the card: nine seeded utterances of 2-5 s fed in 320 ms
+    pieces with staggered lifetimes (two streams join a cycle; the first to
+    finish frees its slot for the ninth), with host-decoder slots at beam
+    32, then device-decode slots at beam 32 and 500. Holds: every pooled
+    transcript equals that audio's single-stream `Model` transcript in the
+    same mode; each round (and each flush step) launches K1 once, at B = 8;
+    device-decode runs launch K5 and host runs do not; K1 at B = 8 with
+    slots at seq_len 0 keeps their state and emits 0 (`k1_idle_rows`).
+    Records rounds, K1 launches a round, K5 calls a round, wall ms a cycle
+    against the 320 ms cadence, and one profiled round's device busy time
+    and idle share."""
+    from torch.profiler import ProfilerActivity
+
+    from stt_tpu_torch.serve import Model, StreamPool
+
+    config, fc, alphabet, n_params = smoke_artifact(work_dir, seed)
+    frozen = k1_idle_rows(device, seed, config.n_cell_dim)
+    gpu = Model(work_dir)
+    rate = fc.sample_rate
+    piece = int(POOL_PIECE_S * rate)
+    rng = np.random.RandomState(seed + 5)
+    audios = [utterance(sec, rate, rng) for sec in rng.uniform(2.0, 5.0, size=POOL_SLOTS + 1)]
+    audio_s = sum(len(a) for a in audios) / rate
+    gpu.stt(audios[0][: rate // 2])  # warm-up
+    runs, launches_total = [], {"k1": 0, "k5": 0}
+    for name, device_decode, beam in POOL_RUNS:
+        gpu.set_model_beam_width(beam)
+        pool = StreamPool(gpu, max_streams=POOL_SLOTS, device_decode=device_decode)
+        calls = {"rounds": 0, "flush_steps": 0}
+        fused, run_infer = pool.fused_round, pool._run_infer
+
+        def counted_round(*args, fused=fused, calls=calls):
+            calls["rounds"] += 1
+            return fused(*args)
+
+        def counted_flush(*args, run_infer=run_infer, calls=calls):
+            calls["flush_steps"] += 1
+            return run_infer(*args)
+
+        pool.fused_round, pool._run_infer = counted_round, counted_flush
+        (texts, cycle_ms, reused), wall_ms, launches = run_counted(
+            f"pool {name}", lambda: drive_pool(pool, audios, piece),
+            ("k1", "k5") if device_decode else ("k1",))
+        steps = calls["rounds"] + calls["flush_steps"]
+        if launches["k1"] != steps:
+            raise AssertionError(f"pool {name}: {launches['k1']} K1 launches for {steps} rounds "
+                                 "and flush steps, one each expected")
+        if reused is None or reused[0] != reused[1]:
+            raise AssertionError(f"pool {name}: the ninth stream did not reuse a freed slot: {reused}")
+        singles = []
+        for audio in audios:
+            stream = gpu.create_stream(device_decode=device_decode)
+            for off in range(0, len(audio), piece):
+                stream.feed_audio_content(audio[off:off + piece])
+            singles.append(stream.finish_stream())
+        if texts != singles:
+            raise AssertionError(f"pool {name}: pooled transcripts {texts} differ from single "
+                                 f"streams' {singles}")
+        rec = {"run": name, "slots": POOL_SLOTS, "beam": beam, "streams": len(audios),
+               "audio_s": audio_s, "wall_ms": wall_ms, "rtf": wall_ms / 1e3 / audio_s,
+               "rounds": calls["rounds"], "flush_steps": calls["flush_steps"],
+               "launches": launches, "k1_launches_per_round": launches["k1"] / steps,
+               "k5_calls_per_round": launches["k5"] / steps, "cycles": len(cycle_ms),
+               "cycle_ms_mean": float(np.mean(cycle_ms)), "cycle_ms_median": float(np.median(cycle_ms)),
+               "cycle_ms_max": float(np.max(cycle_ms)), "cadence_ms": POOL_PIECE_S * 1e3,
+               "transcripts_equal_single_streams": True, "reused_slot": reused[0]}
+        print("pool", json.dumps(rec), flush=True)
+        runs.append(rec)
+        for key in launches_total:
+            launches_total[key] += launches[key]
+
+    # one steady round of 8 primed host slots under the profiler
+    gpu.set_model_beam_width(BEAM_WIDTH)
+    pool = StreamPool(gpu, max_streams=POOL_SLOTS)
+    streams = [pool.create_stream() for _ in range(POOL_SLOTS)]
+    chunk = pool._chunk_samples
+    for i, stream in enumerate(streams):
+        stream.feed_audio_content(audios[i][:chunk])
+    offsets = [chunk] * POOL_SLOTS
+
+    def one_round():
+        for i, stream in enumerate(streams):
+            stream.feed_audio_content(audios[i][offsets[i]:offsets[i] + 16 * fc.step_samples])
+            offsets[i] += 16 * fc.step_samples
+
+    one_round()  # warm: the round after the priming one emits
+    _, round_ms, events = device_profile(one_round, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                         [RECURRENCE_KERNEL])
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = sum(e.self_device_time_total for e in events if RECURRENCE_KERNEL in e.key) / 1e3
+    k1_events = sum(e.count for e in events if RECURRENCE_KERNEL in e.key)
+    if k1_events != 1:
+        raise AssertionError(f"a profiled round showed {k1_events} K1 kernels, 1 expected")
+    profile = {"round_wall_ms": round_ms, "device_busy_ms": busy, "k1_device_ms": k1,
+               "device_idle_share": 1 - busy / round_ms, "k1_events": k1_events,
+               "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in
+                               sorted(events, key=lambda e: -e.self_device_time_total)[:6]]}
+    print("pool_profile", json.dumps(profile), flush=True)
+    return {"runs": runs, "profile": profile, "launches": launches_total, "params": n_params,
+            "k1_idle_rows": frozen, "gpu": card}
+
+
+AUGMENT_TOL = 2e-3  # on-card features vs the CPU pass, absolute and relative (see augment_phase)
+
+
+def augment_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """`train(config)` of the full-width model on the card with
+    --graph_augs_on_device: the input phase's sources and augmentations
+    (FLAC, 8 kHz SPHERE, SDB, tar; every augmentation, codec where libopus
+    loads), B = 16, one epoch, 8 input workers. Every step launches K3 and
+    K4. Then one batch's drawn parameters through the device pass on the
+    card and on the CPU: lengths equal, features within AUGMENT_TOL (float32
+    products of the MFCC summed in another order on the card; the chain's
+    interpolations are the same operations), with the random family's
+    gates (dropout, add, multiply) closed, since the CPU and CUDA generators
+    give different noise; with them open the card's pass must repeat bit
+    for bit. Records the steps, the device pass's time, the train step's
+    audio-s/s with it, and the host featurize rate of the spectrogram path
+    beside the host path's (all augmentations on the host, as in the input
+    phase), serial and on 8 threads."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.data.augmentations import Add, Dropout, Multiply, parse_augmentations
+    from stt_tpu_torch.data.device_augment import DeviceAugmentPipeline
+    from stt_tpu_torch.data.feeding import create_batches
+    from stt_tpu_torch.data.opus import opus_available
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.train import Batch, make_train_step
+    from stt_tpu_torch.train.trainer import train
+
+    rng = np.random.RandomState(seed + 7)
+    paths = write_input_dataset(os.path.join(work_dir, "data"), rng)
+    codec = opus_available()
+    augment = [a.format(noise=paths["noise"]) for a in INPUT_AUGMENT] + ([INPUT_CODEC] if codec else [])
+    sources = [paths["csv"], paths["sdb"], paths["tar"]]
+    summary = os.path.join(work_dir, "summary")
+    shutil.rmtree(summary, ignore_errors=True)
+    config = SttConfig(
+        train_files=sources, alphabet_config_path=paths["alphabet"], n_hidden=2048,
+        train_batch_size=16, epochs=1, dropout_rate=0.05, augment=augment,
+        graph_augs_on_device=True, input_workers=8, prefetch_batches=2, summary_dir=summary,
+        seed=seed,
+    )
+    state, train_ms, launches = run_counted("augment: train with --graph_augs_on_device",
+                                            lambda: train(config, device="cuda"), ("k3", "k4"))
+    steps = state.step
+    if not launches["k3"] == launches["k4"] == steps == 3:
+        raise AssertionError(f"every step must launch K3 and K4 (a dummy step and 2): "
+                             f"{launches}, {steps} steps")
+    with open(os.path.join(summary, "scalars.jsonl")) as f:
+        losses = [r["train/step_loss"] for r in map(json.loads, f) if "train/step_loss" in r]
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"train step losses: {losses}")
+
+    alphabet, fc = Alphabet(paths["alphabet"]), FeatureConfig()
+    augs = parse_augmentations(augment)
+    pipeline = DeviceAugmentPipeline(augs, fc)
+    batch, ids, params = next(create_batches(sources, alphabet, fc, batch_size=16,
+                                             augmentations=augs, train_phase=True,
+                                             device_augment=pipeline))
+    closed = [dict(p, active=np.zeros_like(p["active"]))
+              if isinstance(aug, (Dropout, Add, Multiply)) else p
+              for (aug, _), p in zip(pipeline.chain, params)]
+    on_card = pipeline.apply(batch.features.to(device), batch.feature_lengths.to(device), closed)
+    on_cpu = pipeline.apply(batch.features, batch.feature_lengths, closed)
+    if not torch.equal(on_card[1].cpu(), on_cpu[1]):
+        raise AssertionError(f"augment: lengths on the card {on_card[1].tolist()} differ from the "
+                             f"CPU's {on_cpu[1].tolist()}")
+    err = (on_card[0].cpu() - on_cpu[0]).abs()
+    worst = float((err - AUGMENT_TOL * on_cpu[0].abs()).max())
+    max_abs = float(err.max())
+    if not worst <= AUGMENT_TOL:
+        raise AssertionError(f"augment: on-card features differ from the CPU pass by {max_abs}")
+    full = [pipeline.apply(batch.features.to(device), batch.feature_lengths.to(device), params)
+            for _ in range(2)]
+    if not (torch.equal(full[0][0], full[1][0]) and torch.equal(full[0][1], full[1][1])):
+        raise AssertionError("augment: the card's pass with the random family does not repeat")
+    active = {type(aug).__name__: int(p["active"].sum()) for (aug, _), p in zip(pipeline.chain, params)}
+    spec = batch.features.to(device)
+    lens = batch.feature_lengths.to(device)
+    pass_ms = cuda_ms(lambda: pipeline.apply(spec, lens, params), 10)
+    step = make_train_step()
+    labels = batch.to(device)
+
+    def augmented_step():
+        feats, new_lens = pipeline.apply(spec, lens, params)
+        step(state, Batch(feats, new_lens, labels.labels, labels.label_lengths), seed)
+
+    augmented_step()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(3):
+        augmented_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3 / 3
+    batch_audio_s = float(batch.feature_lengths.sum()) * fc.step_samples / fc.sample_rate
+
+    def spectrogram_epoch(workers: int) -> tuple:
+        start, audio_s = time.perf_counter(), 0.0
+        for b, _, _ in create_batches(sources, alphabet, fc, batch_size=16, augmentations=augs,
+                                      train_phase=True, epoch=1, total_epochs=3,
+                                      num_workers=workers, prefetch=2 if workers else 0,
+                                      device_augment=pipeline):
+            audio_s += float(b.feature_lengths.sum()) * fc.step_samples / fc.sample_rate
+        return time.perf_counter() - start, audio_s
+
+    no_overlay = [a for a in augment if not a.startswith("overlay")]
+    rates = {}
+    for workers in (0, 8):
+        seconds, audio_s = spectrogram_epoch(workers)
+        rates[f"spectrogram_path_{workers}_workers_audio_s_per_s"] = audio_s / seconds
+        _, host_s, host_audio_s = featurize_epoch(sources, alphabet, fc, no_overlay, workers)
+        rates[f"host_path_{workers}_workers_audio_s_per_s"] = host_audio_s / host_s
+    rec = {"steps": steps, "train_ms": train_ms, "launches": launches, "losses": losses,
+           "batch": {"B": int(spec.shape[0]), "T": int(spec.shape[1]), "audio_s": batch_audio_s},
+           "active_rows": active, "card_vs_cpu_max_abs": max_abs, "tol": AUGMENT_TOL,
+           "device_pass_ms": pass_ms, "augmented_step_ms": step_ms,
+           "augmented_step_audio_s_per_s": batch_audio_s / (step_ms / 1e3), **rates,
+           "codec": codec, "host_cpus": os.cpu_count(), "gpu": card}
+    print("augment", json.dumps(rec), flush=True)
+    return rec
+
+
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT_S = 400  # each rank's own limit; the phase kills the ranks past it
+# the two ranks' losses against one rank on the global batch: the same
+# float32 terms, but each rank's products run at 8 rows where one rank runs
+# 16 (other GEMM tilings), and Adam moves every parameter by about lr
+# whatever its gradient's size, so the rounding drifts the next steps apart
+PARALLEL_LOSS_RTOL = 1e-3
+
+
+def parallel_config(paths: dict, seed: int, work_dir: str, **kw):
+    from stt_tpu_torch.config import SttConfig
+
+    return SttConfig(
+        train_files=[paths["train"]], dev_files=[paths["dev"]],
+        alphabet_config_path=paths["alphabet"], n_hidden=2048, train_batch_size=16,
+        dev_batch_size=4, epochs=1, dropout_rate=0.0, seed=seed, input_workers=0,
+        prefetch_batches=0, summary_dir=os.path.join(work_dir, "summary"), **kw)
+
+
+def timed_training(config) -> dict:
+    """train(config) on the card with every step's loss and wall ms (the
+    step ends in a synchronize) recorded, and the launch counts set to 0
+    just before and read just after."""
+    from stt_tpu_torch.train import trainer
+
+    made = trainer.make_train_step
+    losses, step_ms = [], []
+
+    def timed():
+        inner = made()
+
+        def train_step(state, batch, seed=0):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, metrics = inner(state, batch, seed)
+            losses.append(metrics.loss.item())
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            return state, metrics
+        return train_step
+
+    trainer.make_train_step = timed
+    try:
+        state, ms, launches = run_counted("parallel: train", lambda: trainer.train(config, "cuda"),
+                                          ("k1", "k3", "k4"))
+    finally:
+        trainer.make_train_step = made
+    dev = None  # rank 0 alone writes the scalars
+    if os.path.exists(os.path.join(config.summary_dir, "scalars.jsonl")):
+        with open(os.path.join(config.summary_dir, "scalars.jsonl")) as f:
+            dev = [r["dev/loss"] for r in map(json.loads, f) if "dev/loss" in r]
+    return {"losses": losses, "step_ms": step_ms, "train_ms": ms, "launches": launches,
+            "dev_loss": dev, "steps": state.step}
+
+
+def parallel_rank(rank: int, port: int, work_dir: str, seed: int) -> int:
+    """One rank of the parallel phase, in a process of its own: joins the
+    group of PARALLEL_RANKS over gloo (NCCL refuses two ranks on one card)
+    with its tensors on the one card, trains, and writes its record."""
+    sys.path.insert(0, ROOT)
+    from stt_tpu_torch.parallel import distributed
+
+    with open(os.path.join(work_dir, "paths.json")) as f:
+        paths = json.load(f)
+    distributed.initialize(f"localhost:{port}", PARALLEL_RANKS, rank, backend="gloo",
+                           device="cuda")
+    rec = timed_training(parallel_config(paths, seed, os.path.join(work_dir, f"rank{rank}")))
+    rec["rank"] = rank
+    with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """Data parallelism on the one card: two ranks (processes of this
+    script, gloo passed to `initialize`, their tensors on the card) train
+    the full-width model for one epoch of 32 seeded utterances at B = 16,
+    8 rows a rank, dropout 0, with dev losses merged; then one rank trains
+    the same on the global batch. Holds: the ranks' losses are equal to
+    each other and, within PARALLEL_LOSS_RTOL, to the one rank's, and so is
+    the merged dev loss that rank 0 writes (dev batches of 4: one for each
+    rank); only rank 0 writes scalars; every rank's
+    step launches K3 and K4. Records the step ms of both. Then a group of
+    one rank on NCCL: two steps, whose first loss must equal the same step's
+    without a group (a sum over one rank changes nothing)."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.data.feeding import create_batches
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.parallel import distributed
+    from stt_tpu_torch.train import create_train_state, make_train_step
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    fc = FeatureConfig()
+    paths = write_dataset(os.path.join(work_dir, "data"), np.random.RandomState(seed + 1),
+                          fc.sample_rate)
+    with open(os.path.join(work_dir, "paths.json"), "w") as f:
+        json.dump(paths, f)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--parallel-rank", str(r), "--parallel-port", str(port),
+                               "--parallel-dir", work_dir], cwd=ROOT)
+             for r in range(PARALLEL_RANKS)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=PARALLEL_TIMEOUT_S)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(proc.returncode != 0 for proc in procs):
+        raise AssertionError(f"parallel: ranks exited {[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(work_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    one = timed_training(parallel_config(paths, seed, os.path.join(work_dir, "one")))
+    failures = []
+    if ranks[0]["losses"] != ranks[1]["losses"] or ranks[1]["dev_loss"] is not None:
+        failures.append(f"the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    if not (len(ranks[0]["losses"]) == len(one["losses"]) == 3 and np.allclose(
+            ranks[0]["losses"], one["losses"], rtol=PARALLEL_LOSS_RTOL, atol=0)):
+        failures.append(f"two ranks' losses {ranks[0]['losses']} vs one rank's {one['losses']}")
+    if not (len(one["dev_loss"]) == 1 and np.allclose(ranks[0]["dev_loss"], one["dev_loss"],
+                                                       rtol=PARALLEL_LOSS_RTOL, atol=0)):
+        failures.append(f"dev losses {ranks[0]['dev_loss']} vs {one['dev_loss']}")
+    for rec in ranks:
+        if not rec["launches"]["k3"] == rec["launches"]["k4"] == rec["steps"] == 3:
+            failures.append(f"rank {rec['rank']}: every step must launch K3 and K4: {rec['launches']}")
+    loss_rel = float(np.max(np.abs(np.array(ranks[0]["losses"]) / np.array(one["losses"]) - 1)))
+
+    # a group of one rank on NCCL: the collectives run, and change nothing
+    alphabet = Alphabet(paths["alphabet"])
+    batch, _ = next(create_batches([paths["train"]], alphabet, fc, batch_size=16, reverse=True,
+                                   limit=16))
+    batch = batch.to(device)
+    model_config = parallel_config(paths, seed, work_dir).model_config(training=True)
+    nccl = {}
+    for grouped in (False, True):
+        if grouped:
+            distributed.initialize(f"localhost:{free_port()}", 1, 0, backend="nccl", device="cuda")
+        try:
+            state = create_train_state(model_config, seed=seed, device=device)
+            step = make_train_step()
+            losses, ms = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                _, metrics = step(state, batch, seed)
+                losses.append(metrics.loss.item())
+                ms.append((time.perf_counter() - start) * 1e3)
+            nccl["nccl" if grouped else "no_group"] = {"losses": losses, "step_ms": ms,
+                                                      "backend": torch.distributed.get_backend()
+                                                      if grouped else None}
+        finally:
+            if grouped:
+                torch.distributed.destroy_process_group()
+    # the first step from the same weights is equal bit for bit; the CTC
+    # loss's backward sums by atomics, so the second may differ in its last bits
+    got, want = nccl["nccl"]["losses"], nccl["no_group"]["losses"]
+    if got[0] != want[0] or not np.isclose(got[1], want[1], rtol=1e-5, atol=0):
+        failures.append(f"one-rank NCCL steps {nccl}")
+    rec = {"ranks": PARALLEL_RANKS, "backend": "gloo, two ranks on one card", "rank_records": ranks,
+           "one_rank": one, "loss_rel_err_vs_one_rank": loss_rel, "tol": PARALLEL_LOSS_RTOL,
+           "nccl_one_rank": nccl, "gpu": card,
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("k1", "k3", "k4")}}
+    shown = {k: v for k, v in rec.items() if k != "rank_records"}
+    shown["rank_step_ms"] = [r["step_ms"] for r in ranks]
+    shown["rank_launches"] = [r["launches"] for r in ranks]
+    print("parallel", json.dumps(shown), flush=True)
+    if failures:
+        raise AssertionError("parallel phase: " + "; ".join(failures))
+    return rec
 
 
 class BitWriter:
@@ -2516,14 +3098,20 @@ def main() -> int:
                              "its source")
     parser.add_argument("--phases", default="",
                         help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation, "
-                             "input) to run alone (evaluation trains its checkpoint first), "
-                             "for work on a kernel or the host decoder: prints their records "
-                             "and no result line")
+                             "input, pool, augment, parallel) to run alone (evaluation trains "
+                             "its checkpoint first), for work on a kernel, the host decoder or a "
+                             "module: prints their records and no result line")
+    # one rank of the parallel phase, in a process that phase starts
+    parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-dir", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if args.parallel_rank is not None:
+        return parallel_rank(args.parallel_rank, args.parallel_port, args.parallel_dir, args.seed)
     from stt_tpu_torch.device import resolve_device
     from stt_tpu_torch.ops import _build
 
@@ -2563,6 +3151,10 @@ def main() -> int:
                 evaluation_phase(device, args.seed, os.path.join(work_dir, "train"),
                                  training["paths"], scorers, card)
                 continue
+            modules = {"pool": pool_phase, "augment": augment_phase, "parallel": parallel_phase}
+            if name in modules:
+                modules[name](device, args.seed, os.path.join(work_dir, name), card)
+                continue
             records = alone[name](device, args.seed)
             if name == "k5":
                 k5_split(device, args.seed, records)
@@ -2583,6 +3175,10 @@ def main() -> int:
     evaluation = evaluation_phase(device, args.seed, os.path.join(work_dir, "train"),
                                   training["paths"], scorers, card)
     inputs = input_phase(device, args.seed, os.path.join(work_dir, "input"), card)
+    pool = pool_phase(device, args.seed, os.path.join(work_dir, "pool"), card)
+    augment = augment_phase(device, args.seed, os.path.join(work_dir, "augment"), card)
+    parallel = parallel_phase(device, args.seed, os.path.join(work_dir, "parallel"), card)
+    one_rank = parallel["one_rank"]["launches"]
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
     main_shape = next(r for r in k1 if (r["dtype"], r["B"], r["T"]) == ("float32", 1, 16))
@@ -2592,7 +3188,8 @@ def main() -> int:
         "source": "stt_tpu_torch/ops/csrc/lstm_recurrence.cu",
         "replaces": "stt_tpu/ops/lstm_kernel.py:44",
         "launches": (sum(r["k1_launches"] for r in serving["requests"])
-                     + training["launches"]["k1"] + evaluation["launches"]["k1"]),
+                     + training["launches"]["k1"] + evaluation["launches"]["k1"]
+                     + pool["launches"]["k1"] + parallel["launches"]["k1"] + one_rank["k1"]),
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2610,7 +3207,8 @@ def main() -> int:
             "route": "cuda",
             "source": "stt_tpu_torch/ops/csrc/lstm_train.cu",
             "replaces": f"stt_tpu/ops/lstm_train.py:{line}",
-            "launches": training["launches"][key] + inputs["launches"][key],
+            "launches": (training["launches"][key] + inputs["launches"][key]
+                         + augment["launches"][key] + parallel["launches"][key] + one_rank[key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2634,7 +3232,7 @@ def main() -> int:
             "source": f"stt_tpu_torch/ops/csrc/{source}",
             "replaces": replaces,
             "launches": (sum(r["launches"][key] for r in serving["requests"])
-                         + evaluation["launches"][key]),
+                         + evaluation["launches"][key] + pool["launches"].get(key, 0)),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2648,8 +3246,8 @@ def main() -> int:
             json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4,
                        "k5": k5, "k5_phases": k5_phases, "native_build": native_build,
                        "serving": serving, "decoder": decoder, "training": training,
-                       "evaluation": evaluation, "input": inputs,
-                       "kernels": kernels},
+                       "evaluation": evaluation, "input": inputs, "pool": pool,
+                       "augment": augment, "parallel": parallel, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {card}")

@@ -4,9 +4,12 @@ and defaults, so a run script written for one package runs the other).
 
 Flags of parts that are not ported yet raise NotImplementedError, naming
 their ROADMAP.md slice, when they are set away from their defaults (see
-`NOT_PORTED`). `fused_lstm` stays for the flag set's sake, and only at its
-default: the port has no scan to fall back to, and every LSTM on the card
-runs in its kernels.
+`NOT_PORTED`: --export_tflite, and --n_model_parallel above 1, tensor
+parallelism). --num_processes, --process_id and --coordinator_address run
+data parallelism across processes (`maybe_initialize_distributed`).
+`fused_lstm` stays for the flag set's sake, and only at its default: the
+port has no scan to fall back to, and every LSTM on the card runs in its
+kernels.
 """
 
 from __future__ import annotations
@@ -24,10 +27,8 @@ from stt_tpu_torch.models import ModelConfig
 
 # flag -> (its default, the ROADMAP.md slice that ports it)
 NOT_PORTED = {
-    "graph_augs_on_device": (False, "M12, on-device augmentation"),
     "export_tflite": (False, "M15, compat"),
-    "coordinator_address": ("", "M13, parallelism"),
-    "process_id": (-1, "M13, parallelism"),
+    "n_model_parallel": (1, "M13, tensor parallelism"),
 }
 DEVICE_DECODE_MODES = ("auto", "full", "prune", "off")  # stt_tpu's; auto = prune
 
@@ -75,8 +76,7 @@ class SttConfig:
     reverse_train: bool = False
     limit_train: int = 0
     shuffle_batches: bool = True
-    # the JAX package's threaded input pipeline; the port featurizes
-    # serially, which gives the same batches, and accepts these unchanged
+    # featurize threads (-1: up to 8) and batches assembled ahead
     input_workers: int = -1
     prefetch_batches: int = 2
     feature_cache: str = ""
@@ -166,11 +166,6 @@ class SttConfig:
             raise ValueError(
                 "--fused_lstm false selects the JAX package's lax.scan; stt_tpu_torch "
                 "has no such path and always runs the LSTM in its kernels"
-            )
-        if self.num_processes > 1 or self.n_model_parallel > 1:
-            raise NotImplementedError(
-                "multi-process and model-parallel training are not ported to "
-                "stt_tpu_torch yet (ROADMAP.md: M13, parallelism)"
             )
         if self.dropout_rate2 < 0:
             self.dropout_rate2 = self.dropout_rate
@@ -280,8 +275,28 @@ def parse_flags(argv: Optional[List[str]] = None) -> SttConfig:
     return SttConfig(**kwargs)
 
 
-def initialize_globals_from_cli(argv: Optional[List[str]] = None) -> SttConfig:
+def maybe_initialize_distributed(config: SttConfig, device="cuda") -> None:
+    """Join the process group when --num_processes > 1 (before anything
+    else touches the device; the command lines call it right after parsing
+    their flags). --process_id -1 takes the RANK environment variable; the
+    collectives' backend follows `device` (`parallel.distributed.initialize`)."""
+    if config.num_processes and config.num_processes > 1:
+        from stt_tpu_torch.parallel.distributed import initialize
+
+        process_id = config.process_id
+        if process_id < 0:
+            process_id = int(os.environ.get("RANK", "-1"))
+        initialize(
+            coordinator_address=config.coordinator_address or None,
+            num_processes=config.num_processes,
+            process_id=process_id if process_id >= 0 else None,
+            device=device,
+        )
+
+
+def initialize_globals_from_cli(argv: Optional[List[str]] = None, device="cuda") -> SttConfig:
     config = parse_flags(argv)
+    maybe_initialize_distributed(config, device)
     config.resolve_alphabet()
     return config
 

@@ -20,14 +20,17 @@ sample's augmentation RNG is seeded by (sample id, clock), so the batches
 are those of the serial path. `feature_cache` (a
 `data.feature_cache.FeatureCache`) serves rows it holds and fills the rest.
 
-Not ported yet: the multi-host `row_range` (ROADMAP.md, M13) and the
-on-device augmentation `device_augment` (M12).
+`row_range` featurizes only those rows of every global batch (one
+process's share in data-parallel training); `device_augment` (a
+`data.device_augment.DeviceAugmentPipeline`) stops the host's work at the
+spectrogram and yields the drawn augmentation parameters beside each batch,
+for the chain to run on the card.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Iterable, Iterator, List, Sequence, Tuple, Union
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -119,6 +122,23 @@ def prepare_sample_audio(
     return np.asarray(sample.audio, np.float32)
 
 
+def featurize_sample_spectrogram(
+    sample: Sample,
+    feature_config: FeatureConfig,
+    augmentations: Sequence[Augmentation] = (),
+    clock: float = 0.0,
+) -> np.ndarray:
+    """Host half of the on-device augmentation path: the rate, the sample-
+    and signal-domain augmentations and the power spectrogram [T, n_bins];
+    the spectrogram- and features-domain transforms and the MFCC run on the
+    card (`data.device_augment`)."""
+    sample = apply_sample_augmentations(_at_rate(sample, feature_config), augmentations,
+                                        clock=clock)
+    audio = apply_graph_augmentations("signal", np.asarray(sample.audio, np.float32),
+                                      augmentations, clock=clock)
+    return spectrogram(torch.from_numpy(np.asarray(audio, np.float32)), feature_config).numpy()
+
+
 def _round_up(x: int, m: int) -> int:
     return max(m, ((x + m - 1) // m) * m)
 
@@ -138,13 +158,16 @@ def create_batches(
     pad_time_to: int = 16,
     pad_labels_to: int = 8,
     shuffle_batches: bool = True,
+    row_range: Optional[Tuple[int, int]] = None,
     num_workers: int = 0,
     prefetch: int = 0,
+    device_augment=None,
     device_featurize: bool = False,
     feature_cache=None,
     feature_dtype=None,
-) -> Iterator[Tuple[Batch, List[str]]]:
-    """Yield (padded Batch, sample ids).
+) -> Iterator[tuple]:
+    """Yield (padded Batch, sample ids), or with device_augment in the
+    training phase (Batch of spectrograms, sample ids, drawn parameters).
 
     reverse/limit give the longest-first dummy run that finds an
     out-of-memory batch before training starts. A sample's augmentation
@@ -160,7 +183,18 @@ def create_batches(
 
     feature_dtype: a torch dtype for the feature batch (torch.bfloat16
     halves the bytes uploaded to a bf16 train step, which casts its
-    features at its first op anyway); None keeps float32."""
+    features at its first op anyway); None keeps float32.
+
+    row_range=(start, end): only rows [start, end) of every global batch
+    (the composition, sort and shuffle of the batches are the same in
+    every process); empty shares are skipped, and the feature cache is not
+    finalized, since it holds only these rows.
+
+    device_augment: the training batches carry power spectrograms [B, T,
+    n_bins] after the sample- and signal-domain augmentations, and each
+    yield adds the batch's drawn parameters (`DeviceAugmentPipeline.stack`)
+    for the spectrogram and features chains on the card; the feature cache
+    is not used."""
     if isinstance(sources, (list, tuple)) and sources and isinstance(sources[0], Sample):
         samples = list(sources)
     else:
@@ -193,8 +227,10 @@ def create_batches(
                 f"in the spectrogram/features domains: {bad}; use "
                 "--graph_augs_on_device for those"
             )
+    spectrograms = device_augment is not None and train_phase
     cache = feature_cache
-    if cache is not None and (device_featurize or reverse or limit):
+    if cache is not None and (device_featurize or device_augment is not None or reverse
+                              or limit):
         cache = None
 
     def featurize_row(args):
@@ -203,30 +239,41 @@ def create_batches(
         if cache is not None:
             hit = cache.get(row)
             if hit is not None:
-                return hit[0], hit[1]
+                return hit[0], hit[1], None
         labels = text_to_char_array(sample.transcript, alphabet, context=sample.sample_id)
+        if spectrograms:
+            spec = featurize_sample_spectrogram(sample, feature_config, augmentations, clock)
+            return spec, labels, device_augment.draw_sample(sample.sample_id, spec.shape[0],
+                                                            clock)
         if device_featurize:
             return prepare_sample_audio(
-                sample, feature_config, augmentations, train_phase, clock), labels
+                sample, feature_config, augmentations, train_phase, clock), labels, None
         feats = featurize_sample(sample, feature_config, augmentations, train_phase, clock)
         if cache is not None:
             cache.put(row, feats, labels)
-        return feats, labels
+        return feats, labels, None
 
     def batch_tasks():
         for batch_index in order:
             start = batch_index * batch_size
-            yield list(enumerate(samples[start:start + batch_size], start))
+            rows = list(enumerate(samples[start:start + batch_size], start))
+            if row_range is not None:
+                rows = rows[row_range[0]:row_range[1]]
+                if not rows:
+                    continue
+            yield rows
 
     def assemble(rows, results):
         ids = [sample.sample_id for _, sample in rows]
-        feats_list = [feats for feats, _ in results]
-        labels_list = [labels for _, labels in results]
-        if device_featurize:
+        feats_list = [feats for feats, _, _ in results]
+        labels_list = [labels for _, labels, _ in results]
+        if device_featurize and not spectrograms:
             return _audio_batch(feats_list, labels_list, feature_config, pad_time_to,
                                 pad_labels_to), ids
-        batch = _feature_batch(feats_list, labels_list, feature_config.n_mfcc, pad_time_to,
-                               pad_labels_to)
+        width = feature_config.n_bins if spectrograms else feature_config.n_mfcc
+        batch = _feature_batch(feats_list, labels_list, width, pad_time_to, pad_labels_to)
+        if spectrograms:
+            return batch, ids, device_augment.stack([drawn for _, _, drawn in results])
         if feature_dtype is not None:
             batch = batch._replace(features=batch.features.to(feature_dtype))
         return batch, ids
@@ -238,7 +285,7 @@ def create_batches(
         else:
             for rows in batch_tasks():
                 yield assemble(rows, [featurize_row(r) for r in rows])
-        if cache is not None:
+        if cache is not None and row_range is None:
             cache.finalize(len(samples))  # a full epoch: freeze and persist
     finally:
         for aug in augmentations:

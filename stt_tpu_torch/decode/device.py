@@ -19,16 +19,12 @@
    host decoder (decode/beam.py) does, and keeps the top `beam`
    candidates. Only backpointer tables leave the device; the host rebuilds
    strings and timesteps by walking them (`rebuild_results`), in O(T +
-   tokens) whatever the alphabet's size. Shapes the beam kernel takes
-   (`stt_tpu_torch.ops.beam_kernel.supports`: beam <= 512, classes <= 256,
-   byte alphabets included) go through its wrapper, which launches
-   the Hopper kernel on CUDA tensors and runs `beam_scan_plain`, the
-   kernel's plain version, on CPU tensors. Beyond those shapes (beams
-   above 512, more classes) CPU tensors run the plain scan and count
-   themselves in `scan.plain_scans`, and CUDA tensors raise: the plain
-   scan never stands in for the kernel on the card. Host arrays go to the
-   card (`device="cuda"`) unless the caller passes device="cpu"; tensors
-   stay where they lie.
+   tokens) whatever the alphabet's size. Every shape goes through the beam
+   kernel's wrapper (`stt_tpu_torch.ops.beam_kernel.beam_scan`, which takes
+   every beam and every alphabet), which launches the Hopper kernel on
+   CUDA tensors and runs `beam_scan_plain`, the kernel's plain version, on
+   CPU tensors. Host arrays go to the card (`device="cuda"`) unless the
+   caller passes device="cpu"; tensors stay where they lie.
 
    Known, deliberate divergences from the host decoder: arithmetic is f32
    against the host's f64 (transcripts, tokens and timesteps match on the
@@ -578,49 +574,19 @@ def _device_beam_scan(probs, seq_len, beam_width, cutoff_top_n, cutoff_prob,
     return logaddexp(state[0], state[1]), src, char
 
 
-def check_scan_shape(beam_width: int, n_class: int, device, blank_id=None) -> None:
-    """Raise for a shape the beam kernel does not take when the scan is to
-    run on the card."""
-    from stt_tpu_torch.ops import beam_kernel
-
-    if torch.device(device).type == "cuda" and not beam_kernel.supports(
-            beam_width, n_class, blank_id):
-        raise ValueError(
-            f"device beam search on the card takes beam <= {beam_kernel.WIDE_SLOTS} and "
-            f"classes <= {beam_kernel.MAX_CLASSES} (the blank last at {beam_kernel.MAX_CLASSES}), "
-            f"got beam {beam_width} over {n_class} classes; narrow the beam, use the host "
-            "decoder, or pass CPU tensors")
-
-
 def scan(probs, lens, beam_width, cutoff_top_n, cutoff_prob, blank_id=None,
          ignored_symbols=(), state=None):
-    """The one routing rule, by shape and device alone: what the beam kernel
-    takes goes through its wrapper (the kernel on CUDA tensors, its plain
-    version on CPU tensors); beyond that, CPU tensors run the plain scan
-    and add one to `scan.plain_scans`, and CUDA tensors raise. `state` is
+    """The beam scan of every shape, through the beam kernel's wrapper: the
+    kernel on CUDA tensors, its plain version on CPU tensors. `state` is
     what the previous call returned (None to start). Returns (state',
     scores [B, W], backpointers), the last either the wrapper's packed
     [B, T, W] plane or a (bp_src, bp_char) pair."""
     from stt_tpu_torch.ops import beam_kernel
 
-    B, _, C = probs.shape
-    ignored = tuple(int(i) for i in ignored_symbols)
-    if beam_kernel.supports(beam_width, C, blank_id):
-        return beam_kernel.beam_scan(
-            probs, lens, beam_width, cutoff_top_n, cutoff_prob, blank_id, ignored,
-            state=state,
-        )
-    check_scan_shape(beam_width, C, probs.device, blank_id)
-    scan.plain_scans += 1
-    if state is None:
-        state = init_beam_state(B, beam_width, probs.device)
-    state, src, char = beam_scan_plain(
-        state, probs, lens, beam_width, cutoff_top_n, cutoff_prob, blank_id, ignored
+    return beam_kernel.beam_scan(
+        probs, lens, beam_width, cutoff_top_n, cutoff_prob, blank_id,
+        tuple(int(i) for i in ignored_symbols), state=state,
     )
-    return state, logaddexp(state[0], state[1]), (src, char)
-
-
-scan.plain_scans = 0
 
 
 def _on_device(probs, device) -> torch.Tensor:
@@ -633,9 +599,7 @@ def _on_device(probs, device) -> torch.Tensor:
 def _host_backpointers(bp) -> Tuple[np.ndarray, np.ndarray]:
     from stt_tpu_torch.ops import beam_kernel
 
-    if isinstance(bp, tuple):
-        return bp[0].cpu().numpy(), bp[1].cpu().numpy()
-    return beam_kernel.unpack_bp(bp.cpu().numpy())
+    return beam_kernel.unpack_bp(bp if isinstance(bp, tuple) else bp.cpu().numpy())
 
 
 class DeviceStreamingDecoder:

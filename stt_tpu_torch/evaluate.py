@@ -12,8 +12,11 @@ decode of `--device_decode`:
 The decode timer starts after a CUDA synchronize, so the logged decode
 throughput holds no forward time.
 
-It runs as process 0 of 1: several processes are not ported yet
-(ROADMAP.md, M13), and the config refuses them.
+With several processes (`--num_processes`, joined by the command line's
+`config.maybe_initialize_distributed`) each rank takes every
+num_processes-th test batch, and the corpus WER and CER merge over the
+ranks' edit-distance counters (`parallel.distributed.merge_wer_counters`),
+logged by rank 0.
 
 Run: python -m stt_tpu_torch.evaluate --test_files ... --checkpoint_dir ...
      [--device cpu]
@@ -40,10 +43,13 @@ from stt_tpu_torch.device import resolve_device
 from stt_tpu_torch.evaluate_tools import (
     SampleResult,
     calculate_and_print_report,
+    char_distance,
     process_decode_result,
     save_samples_json,
+    word_distance,
 )
 from stt_tpu_torch.models import DeepSpeech
+from stt_tpu_torch.parallel import distributed
 from stt_tpu_torch.train.checkpoints import CheckpointManager, load_graph_for_evaluation
 from stt_tpu_torch.train.step import create_train_state, make_eval_step
 
@@ -96,7 +102,8 @@ def evaluate(
     """Evaluate `model` (or the checkpoint in `config.load_checkpoint_dir`)
     on each test CSV: one list of SampleResult per CSV. Runs on the card
     unless the caller passes device="cpu"."""
-    device = resolve_device(device)
+    device = distributed.local_device(resolve_device(device))
+    proc_id, proc_count = distributed.process_index(), distributed.process_count()
     alphabet = config.resolve_alphabet()
     feature_config = config.feature_config
     model = load_model(config, device) if model is None else model.to(device)
@@ -113,10 +120,12 @@ def evaluate(
         results: List[SampleResult] = []
         decode_walls: List[float] = []
         decode_audio_s = 0.0
-        for batch, ids in create_batches(
+        for batch_index, (batch, ids) in enumerate(create_batches(
             [test_csv], alphabet, feature_config, batch_size=config.test_batch_size,
             train_phase=False,
-        ):
+        )):
+            if batch_index % proc_count != proc_id:  # another rank's batch
+                continue
             lengths = batch.feature_lengths.tolist()
             losses, logits = eval_step(model, batch.to(device))
             probs = torch.softmax(logits, dim=-1)  # stays on the device
@@ -138,6 +147,16 @@ def evaluate(
         )
         if decode_walls:
             log_info(decode_throughput(test_csv, config, decode_walls, decode_audio_s))
+        if proc_count > 1:
+            wd = wn = cd = cn = 0
+            for r in results:
+                d, n = word_distance(r.src, r.res)
+                wd, wn = wd + d, wn + n
+                d, n = char_distance(r.src, r.res)
+                cd, cn = cd + d, cn + n
+            wer, cer = distributed.merge_wer_counters(wd, wn, cd, cn)
+            if proc_id == 0:
+                log_info(f"All-hosts corpus on {test_csv} - WER: {wer:.6f}, CER: {cer:.6f}")
         reports.append(results)
     if config.test_output_file and reports:
         save_samples_json(
@@ -174,7 +193,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--device", default="cuda")
     args, rest = parser.parse_known_args(argv)
-    config = initialize_globals_from_cli(rest)
+    config = initialize_globals_from_cli(rest, device=args.device)
     if not config.test_files:
         print("--test_files is required", file=sys.stderr)
         sys.exit(1)

@@ -10,20 +10,25 @@ with dead slots (-inf, hash (0, 0)), so the kernel's state and the plain
 version's interchange mid-stream (`state_to_plain`, `state_from_plain`).
 
 Capacity (`supports`): the TPU kernel takes beam <= 128 and classes <= 127;
-the Hopper kernel takes beam <= WIDE_SLOTS = 512 and classes <= MAX_CLASSES
-= 256, so byte alphabets run in it at every beam up to the serving default
-of 500. Shapes whose candidate pool beam x (classes + 1) fits MAX_POOL =
-16,384 keys over at most 127 classes run in the narrow instance, with the
-pool in shared memory and masks of 128 lanes; every other shape runs in the
-wide instance, whose pool lies in a scratch of device memory that the
-wrapper allocates and whose masks have 256 lanes. Beams up to WSLOTS = 128
-keep the TPU kernel's 128-slot state and its int16 backpointer plane (7
-bits of source slot above 8 bits of character + 1); wider beams have a
-512-slot state and an int32 plane of the same packing. A character must
-then be at most 254: with 256 classes the blank is the last one. Shapes
-beyond `supports` (beams above 512, more than 256 classes, 256 classes with
-another blank) are not taken: `stt_tpu_torch.decode.device.scan` runs the
-plain scan for CPU tensors and raises for CUDA tensors.
+the Hopper kernel takes every beam and every alphabet, in three instances
+(`instance`). Shapes whose candidate pool beam x (classes + 1) fits
+MAX_POOL = 16,384 keys over at most 127 classes run in the narrow
+instance, with the pool in shared memory and masks of 128 lanes; beams up
+to WIDE_SLOTS = 512 over up to MAX_CLASSES = 256 classes (the blank last at
+256) run in the wide instance, whose pool lies in a scratch of device
+memory that the wrapper allocates and whose masks have 256 lanes; every
+other shape (beams above 512, larger alphabets, 256 classes with another
+blank) runs in the huge instance, which also keeps in device memory
+whatever of its per-slot, per-class, table, sort and strike-out arrays its
+shared memory does not hold (a workspace the wrapper allocates). Beams up to
+WSLOTS = 128 keep the TPU kernel's 128-slot state and, in the narrow and
+wide instances, its int16 backpointer plane (7 bits of source slot above 8
+bits of character + 1); beams up to 512 have a 512-slot state and an int32
+plane of the same packing; beams above 512 a state of the beam rounded up
+to a multiple of 128 slots. The huge instance returns its backpointers as
+the pair of int32 planes (bp_src, bp_char) that the plain version returns,
+since its characters may pass 254. Its flat candidate indices are ints:
+beam x (classes + 1) may be at most MAX_FLAT = 2^30.
 """
 
 from __future__ import annotations
@@ -45,11 +50,13 @@ from stt_tpu_torch.decode.device import (
 from stt_tpu_torch.ops._build import check_tensors, launch, load
 
 WSLOTS = 128  # beam slots of the state between chunks, beams up to 128
-WIDE_SLOTS = 512  # the same for wider beams
+WIDE_SLOTS = 512  # the same for beams up to 512, the wide instance's most
+SLOT_STEP = 128  # beams above 512: the state's slots are the beam rounded up to this
 LANES = 128  # class lanes of the narrow instance's masks: classes <= 127
 WIDE_LANES = 256  # of the wide instance's
-MAX_CLASSES = WIDE_LANES  # classes the kernel takes
+MAX_CLASSES = WIDE_LANES  # classes the wide instance takes
 MAX_POOL = 16384  # candidates per frame, beam x (classes + 1), of the narrow instance
+MAX_FLAT = 1 << 30  # candidates per frame of the huge instance
 
 # (f [2, B, 1, S] f32: p_b, p_nb; i [5, B, 1, S] int32: last, ha, hb,
 #  par_ha, par_hb; started [B, 1, 1] int32), S = state_slots(beam)
@@ -57,28 +64,45 @@ KernelState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def supports(beam_width: int, n_class: int, blank_id: Optional[int] = None) -> bool:
-    """Shapes the kernel takes (blank_id None: the last class)."""
-    last_is_blank = blank_id is None or blank_id == n_class - 1
-    return (beam_width <= WIDE_SLOTS and n_class <= MAX_CLASSES
-            and (n_class < MAX_CLASSES or last_is_blank))
+    """Shapes the kernel takes: every beam and alphabet, up to MAX_FLAT
+    candidates a frame."""
+    return beam_width >= 1 and n_class >= 1 and beam_width * (n_class + 1) <= MAX_FLAT
 
 
 def is_narrow(beam_width: int, n_class: int) -> bool:
     """Whether the shape runs in the narrow instance (pool in shared memory)."""
-    return n_class <= LANES - 1 and beam_width * (n_class + 1) <= MAX_POOL
+    return (beam_width <= WIDE_SLOTS and n_class <= LANES - 1
+            and beam_width * (n_class + 1) <= MAX_POOL)
+
+
+def instance(beam_width: int, n_class: int, blank_id: Optional[int] = None) -> str:
+    """The kernel instance that takes the shape (blank_id None: the last
+    class): "narrow", "wide" (beam <= 512, classes <= 256, a character of
+    at most 254) or "huge" (every other shape)."""
+    if is_narrow(beam_width, n_class):
+        return "narrow"
+    last_is_blank = blank_id is None or blank_id == n_class - 1
+    if (beam_width <= WIDE_SLOTS and n_class <= MAX_CLASSES
+            and (n_class < MAX_CLASSES or last_is_blank)):
+        return "wide"
+    return "huge"
 
 
 def state_slots(beam_width: int) -> int:
     """Slots of the state tensors for this beam."""
-    return WSLOTS if beam_width <= WSLOTS else WIDE_SLOTS
+    if beam_width <= WSLOTS:
+        return WSLOTS
+    if beam_width <= WIDE_SLOTS:
+        return WIDE_SLOTS
+    return -(-beam_width // SLOT_STEP) * SLOT_STEP
 
 
 def _masks(n_class: int, blank: int, ignored_symbols: Sequence[int],
            default_blank: bool) -> Tuple[np.ndarray, np.ndarray]:
     """(not-ignored [1, 1, lanes] int32, 0 on ignored and padded lanes;
-    static rank [1, 1, lanes] int32), with LANES lanes up to 127 classes and
-    WIDE_LANES above."""
-    lanes = LANES if n_class <= LANES - 1 else WIDE_LANES
+    static rank [1, 1, lanes] int32), with LANES lanes up to 127 classes,
+    WIDE_LANES up to 256 and one a class above."""
+    lanes = LANES if n_class <= LANES - 1 else max(WIDE_LANES, n_class)
     not_ignored, rank_c = class_masks(n_class, blank, ignored_symbols, default_blank)
     nign = np.zeros((lanes,), np.int32)
     nign[:n_class] = not_ignored
@@ -133,21 +157,38 @@ def pack_bp(src: torch.Tensor, char: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_bp(packed) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side unpack of beam_scan's plane -> (bp_src, bp_char)."""
+    """Host-side unpack of beam_scan's packed plane, or of the huge
+    instance's (bp_src, bp_char) pair -> (bp_src, bp_char)."""
+    if isinstance(packed, tuple):
+        return tuple(np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p) for p in packed)
     p = np.asarray(packed).astype(np.int32)
     return p >> 8, (p & 0xFF) - 1
 
 
 @functools.lru_cache(maxsize=None)
-def _library_function(define: str = "", wide: bool = False):
-    """The narrow instance's entry point, or with `wide` the wide one's,
-    which takes the pool's scratch after cutoff_prob."""
+def _library_function(define: str = "", kind: str = "narrow"):
+    """The entry point of the instance `kind`: the wide one takes the pool's
+    scratch after cutoff_prob, the huge one the pool and its workspace (and
+    no bp_wide)."""
     lib = load("beam_scan", define)
-    fn = lib.beam_scan_wide if wide else lib.beam_scan
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * (2 if wide else 1))
+    fn = getattr(lib, {"narrow": "beam_scan", "wide": "beam_scan_wide",
+                       "huge": "beam_scan_huge"}[kind])
+    n_int = 8 if kind == "huge" else 9
+    n_tail = {"narrow": 1, "wide": 2, "huge": 3}[kind]
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * n_int + [ctypes.c_float]
+                   + [ctypes.c_void_p] * n_tail)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=256)
+def huge_workspace_bytes(beam_width: int, slots: int, n_class: int) -> int:
+    """Bytes of device memory per utterance that the huge instance's
+    layout puts outside shared memory (`huge_layout` in the source)."""
+    fn = load("beam_scan").beam_scan_huge_workspace
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return int(fn(beam_width, slots, n_class))
 
 
 def beam_scan(
@@ -159,29 +200,32 @@ def beam_scan(
     blank_id: Optional[int] = None,
     ignored_symbols: Sequence[int] = (),
     state: Optional[KernelState] = None,
-) -> Tuple[KernelState, torch.Tensor, torch.Tensor]:
+):
     """Advance B beams over probs [B, T, C] (softmax, f32); frames at or
     past seq_lengths [B] int32 are no-ops.
 
-    Returns (state', scores [B, W] with W = beam_width, bp [B, T, W]) where
-    bp packs each frame's backpointers as (src << 8) | (char + 1), int16
-    for W <= 128 and int32 above; `unpack_bp` recovers the (bp_src,
-    bp_char) pair `rebuild_results` walks. `state` threads streaming chunks
-    (the layout of `init_state` with `state_slots(W)` slots)."""
+    Returns (state', scores [B, W] with W = beam_width, bp). For the narrow
+    and wide instances' shapes bp packs each frame's backpointers [B, T, W]
+    as (src << 8) | (char + 1), int16 for W <= 128 and int32 above, and
+    `unpack_bp` recovers the (bp_src, bp_char) pair `rebuild_results`
+    walks; for the huge instance's shapes bp is that pair of int32 [B, T,
+    W] tensors. `state` threads streaming chunks (the layout of
+    `init_state` with `state_slots(W)` slots)."""
     if probs.dim() != 3:
         raise ValueError(f"probs must be [B, T, C], got {tuple(probs.shape)}")
     B, T, C = probs.shape
     W = int(beam_width)
-    if W < 1 or not supports(W, C, blank_id):
+    if not supports(W, C, blank_id):
         raise ValueError(
-            f"the beam kernel takes 1 <= W <= {WIDE_SLOTS} and C <= {MAX_CLASSES}, with the "
-            f"blank last at C = {MAX_CLASSES}; got W = {W}, C = {C}, blank_id {blank_id}")
+            f"the beam kernel takes W >= 1 and W (C + 1) <= {MAX_FLAT} candidates a "
+            f"frame; got W = {W}, C = {C}")
     blank = C - 1 if blank_id is None else int(blank_id)
     ignored = tuple(int(s) for s in ignored_symbols)
     if not 0 <= blank < C or any(not 0 <= s < C for s in ignored):
         raise ValueError("blank_id and ignored_symbols must be class indices")
     device = probs.device
     slots = state_slots(W)
+    kind = instance(W, C, blank_id)
     if state is None:
         state = init_state(B, device, slots)
     f, i, started = state
@@ -197,26 +241,35 @@ def beam_scan(
             state_to_plain(state, W), probs, seq_lengths, W, int(cutoff_top_n),
             float(cutoff_prob), blank_id, ignored,
         )
-        return state_from_plain(plain), logaddexp(plain[0], plain[1]), pack_bp(src, char)
+        bp = (src, char) if kind == "huge" else pack_bp(src, char)
+        return state_from_plain(plain), logaddexp(plain[0], plain[1]), bp
     out_f, out_i, out_started = torch.empty_like(f), torch.empty_like(i), torch.empty_like(started)
-    wide = W > WSLOTS
-    bp = torch.empty((B, T, W), dtype=torch.int32 if wide else torch.int16, device=device)
     nign, rank = _device_masks(C, blank, ignored, blank_id is None, device)
     # what the frame's emission cutoff does: 2 sorts the classes and cuts by
     # cumulative mass or count, 1 only sorts, 0 keeps the static order
     mode = 2 if cutoff_prob < 1.0 else 1 if cutoff_top_n < C else 0
-    # the wide instance's pool: every key of a frame, in device memory
-    pool = None if is_narrow(W, C) else torch.empty(
+    # the wide and huge instances' pool: every key of a frame, in device memory
+    pool = None if kind == "narrow" else torch.empty(
         (B, W * (C + 1)), dtype=torch.int64, device=device)
-    beam_scan.launches += 1
-    launch(
-        _library_function(wide=pool is not None), "beam_scan", device,
-        probs.data_ptr(), seq_lengths.data_ptr(), nign.data_ptr(), rank.data_ptr(),
-        f.data_ptr(), i.data_ptr(), started.data_ptr(),
-        out_f.data_ptr(), out_i.data_ptr(), out_started.data_ptr(),
-        bp.data_ptr(), B, T, W, slots, C, blank, int(cutoff_top_n), mode, int(wide),
-        float(cutoff_prob), *(() if pool is None else (pool.data_ptr(),)),
-    )
+    args = (probs.data_ptr(), seq_lengths.data_ptr(), nign.data_ptr(), rank.data_ptr(),
+            f.data_ptr(), i.data_ptr(), started.data_ptr(),
+            out_f.data_ptr(), out_i.data_ptr(), out_started.data_ptr())
+    if kind == "huge":
+        bp = torch.empty((2, B, T, W), dtype=torch.int32, device=device)
+        ws_bytes = huge_workspace_bytes(W, slots, C)
+        ws = torch.empty((B * ws_bytes,), dtype=torch.uint8, device=device) if ws_bytes else None
+        beam_scan.launches += 1
+        launch(_library_function(kind=kind), "beam_scan", device, *args, bp.data_ptr(),
+               B, T, W, slots, C, blank, int(cutoff_top_n), mode, float(cutoff_prob),
+               pool.data_ptr(), None if ws is None else ws.data_ptr())
+        bp = (bp[0], bp[1])
+    else:
+        wide = W > WSLOTS
+        bp = torch.empty((B, T, W), dtype=torch.int32 if wide else torch.int16, device=device)
+        beam_scan.launches += 1
+        launch(_library_function(kind=kind), "beam_scan", device, *args, bp.data_ptr(),
+               B, T, W, slots, C, blank, int(cutoff_top_n), mode, int(wide),
+               float(cutoff_prob), *(() if pool is None else (pool.data_ptr(),)))
     scores = logaddexp(out_f[0, :, 0, :W], out_f[1, :, 0, :W])
     return (out_f, out_i, out_started), scores, bp
 

@@ -38,26 +38,44 @@
 // 95 barriers a frame at W = 500.)
 //
 // Capacity: the TPU kernel takes beams up to 128 slots and 127 classes;
-// this one takes up to 512 slots and 256 classes, in two instances of one
+// this one takes every beam and every alphabet, in three instances of one
 // template. The narrow instance (classes <= 127 and a pool W x (C + 1) of
 // at most 16,384 keys, 128 KB) keeps the pool in shared memory: it covers
 // the serving default of beam 500 over a 29-class alphabet. The wide
-// instance takes every other shape, byte alphabets (256 classes) at beam
-// 500 among them, whose pool of up to 512 x 257 keys (1.05 MB) no shared
-// memory holds: its live keys are compacted into a scratch of [B, W (C +
-// 1)] keys in device memory that the caller allocates, which the 50 MB L2
-// holds at the batches the main path uses; the radix select's histograms
-// stay in shared memory, and only the W winners come back into shared
-// memory for the sort. Its class masks have 256 lanes, its strike-out bits
-// cover the whole pool (16 KB). The arithmetic is the same code in both.
-// The state tensors have S = 128 slots for beams up to 128 (the TPU
-// kernel's layout) and S = 512 above; the packed backpointer is an int16
-// up to 128 slots (7 bits of source above 8 bits of character + 1) and an
-// int32 above, so a character must be at most 254 (with 256 classes the
-// blank is then the last). All per-slot arrays live in dynamic shared
-// memory (behind the keys in the narrow instance), since 512 slots pass
-// the 48 KB of static space.
-//
+// instance takes beams up to 512 over up to 256 classes (the blank last at
+// 256), byte alphabets at beam 500 among them, whose pool of up to 512 x
+// 257 keys (1.05 MB) no shared memory holds: its live keys are compacted
+// into a scratch of [B, W (C + 1)] keys in device memory that the caller
+// allocates, which the 50 MB L2 holds at the batches the main path uses;
+// the radix select's histograms stay in shared memory, and only the W
+// winners come back into shared memory for the sort. Its class masks have
+// 256 lanes, its strike-out bits cover the whole pool (16 KB). The huge
+// instance takes every other shape: beams above 512 (the state then has
+// W rounded up to a multiple of 128 slots), more than 256 classes (a
+// character alphabet of thousands of symbols), 256 classes with another
+// blank. Everything of it that scales with W or C lies in a layout that
+// the host computes (`huge_layout`): the per-slot arrays, the per-class
+// arrays, the parent table (at least 2 W places), one sort buffer of
+// next_pow2(max(W, C)) keys and the strike-out bits over the pool, each in
+// dynamic shared memory while HUGE_SMEM lasts and else in a workspace in
+// device memory that the caller allocates per utterance (at beam 500 over
+// 4,096 classes the strike-out bits, 256 KB, go there). Its classes are
+// ranked by sorting C keys (a block-wide bitonic sort in memory) where the
+// other instances count, and its winners are sorted by the same in-memory
+// network, since W may pass the block's 1,024 threads. Its backpointers
+// are two int32 planes, source slot and character, since a character may
+// pass 254 and a slot 2^15. Its flat indices are ints, so W (C + 1) is at
+// most MAX_FLAT = 2^30 (8 GiB of keys an utterance): the key's low 32 bits
+// would hold up to 2^32.
+// The arithmetic is the same code in all three. The state tensors have S =
+// 128 slots for beams up to 128 (the TPU kernel's layout) and S = 512 up
+// to 512; the packed backpointer of the narrow and wide instances is an
+// int16 up to 128 slots (7 bits of source above 8 bits of character + 1)
+// and an int32 above, so a character must be at most 254 there (with 256
+// classes the blank is then the last). All per-slot arrays live in dynamic
+// shared memory (behind the keys in the narrow instance), since 512 slots
+// pass the 48 KB of static space.
+
 // What bounds it on this card: bytes in the table's sense are tiny (C
 // floats in and W int16 out per frame), but the T frames form a dependency
 // chain, each a few dozen block-wide barriers long, so the time is latency:
@@ -87,12 +105,30 @@ constexpr int WIDE_POOL = MAX_SLOTS * (WIDE_LN + 1);  // of the wide one's, in d
 constexpr int SLOT_ARRAYS = 20;  // per-slot arrays of 4-byte values
 constexpr int MAX_SORT = 512;    // keys the final sort takes: the beam, padded
 constexpr int TABLE = 1024;      // open-addressing places of the parent table (2 x MAX_SLOTS)
+constexpr int TABLE_BITS = 10;   // log2(TABLE)
+constexpr int HUGE_SMEM = 200 * 1024;  // dynamic shared memory the huge instance's layout may take
+constexpr long long MAX_FLAT = 1LL << 30;  // W (C + 1) of the huge instance: int flat indices
+constexpr int NO_SLOT = 0x7fffffff;  // a table place's first slot before any slot has it
 constexpr float LOG_FLOOR = 1.1754944e-38f;
 constexpr uint32_t H1 = 1000003u;
 constexpr uint32_t H2 = 69069u;
 #define NEG_INF (-CUDART_INF_F)
 
 typedef unsigned long long u64;
+
+enum Kind { NARROW = 0, WIDE = 1, HUGE = 2 };
+
+// Where the huge instance's arrays lie: region r (0 the per-slot arrays,
+// 1 the per-class arrays, 2 the parent table, 3 the sort buffer, 4 the
+// strike-out bits) in dynamic shared memory when bit r of in_smem is set,
+// else in the block's part of the workspace, at byte offset off[r].
+struct Layout {
+  unsigned in_smem;
+  u64 off[5];
+  u64 smem_bytes, ws_bytes;  // dynamic shared memory; workspace per block
+  int tbits;                 // the parent table has 1 << tbits places
+  int lsort;                 // keys of the sort buffer (a power of two)
+};
 
 #ifdef K5_PHASE_CLOCKS
 // A variant for measurement only (chip_smoke.py builds it beside the
@@ -139,8 +175,8 @@ __device__ __forceinline__ float key_value(u64 key) {
 __device__ __forceinline__ u64 hash_pair(int32_t a, int32_t b) {
   return ((u64)(uint32_t)a << 32) | (u64)(uint32_t)b;
 }
-__device__ __forceinline__ unsigned table_place(u64 key) {
-  return (unsigned)(((key ^ (key >> 29)) * 0x9E3779B97F4A7C15ull) >> 54);  // 10 bits
+__device__ __forceinline__ unsigned table_place(u64 key, int bits) {
+  return (unsigned)(((key ^ (key >> 29)) * 0x9E3779B97F4A7C15ull) >> (64 - bits));
 }
 
 __device__ __forceinline__ u64 umax64(u64 a, u64 b) { return a > b ? a : b; }
@@ -174,6 +210,29 @@ __device__ void sort_desc(u64 (*buf)[MAX_SORT], int L) {
   __syncthreads();  // the last stage's reads are done
   if (tid < L) buf[0][tid] = x;
   __syncthreads();
+}
+
+// Sorts the L keys of a[0, L) descending (L a power of two, any size) by
+// the bitonic network in memory, shared or device: every thread takes the
+// pairs (i, i ^ j) with i < i ^ j of its indices, one barrier a stage.
+// The caller has written a[] before a barrier; ends with a barrier.
+__device__ void sort_desc_mem(u64* a, int L) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int k = 2; k <= L; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < L; i += nt) {
+        const int p = i ^ j;
+        if (p > i) {
+          const u64 x = a[i], y = a[p];
+          if ((i & k) == 0 ? x < y : x > y) {
+            a[i] = y;
+            a[p] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 // The position of this lane's item among the warp's items that are `on`,
@@ -270,9 +329,12 @@ __device__ u64 radix_select(const u64* keys, int n, int W, u64 spread, u64 any,
 
 // mode: 0 = classes in static rank order, none cut; 1 = sorted by
 // probability, none cut (cutoff_top_n < C alone); 2 = sorted and cut by
-// cumulative mass cutoff_prob or at cutoff_top_n. WIDE: the pool's keys go
-// to pool [B, W (C + 1)] in device memory, and the masks have WIDE_LN lanes.
-template <typename BP, bool WIDE>
+// cumulative mass cutoff_prob or at cutoff_top_n. KIND: NARROW keeps the
+// pool's keys in shared memory; WIDE puts them in pool [B, W (C + 1)] in
+// device memory and has masks of WIDE_LN lanes; HUGE also has its pool
+// there and every array that scales with W or C where `lay` says (ws:
+// [B, lay.ws_bytes]), and writes bp as two int32 planes [2, B, T, W].
+template <typename BP, int KIND>
 __global__ void __launch_bounds__(1024)
 beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
                  const int32_t* __restrict__ lens,       // [B]
@@ -283,19 +345,74 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
                  const int32_t* __restrict__ in_started, // [B]
                  float* __restrict__ out_f, int32_t* __restrict__ out_i,
                  int32_t* __restrict__ out_started,
-                 BP* __restrict__ bp,                    // [B, T, W]
-                 u64* pool,                              // WIDE: [B, W (C + 1)]
+                 BP* __restrict__ bp,                    // [B, T, W]; HUGE [2, B, T, W]
+                 u64* pool,                              // WIDE, HUGE: [B, W (C + 1)]
                  int B, int T, int W, int S, int C, int blank,
-                 int cutoff_top_n, int mode, float cutoff_prob) {
-  constexpr int lanes = WIDE ? WIDE_LN : LN;
-  constexpr int pool_bits = WIDE ? WIDE_POOL : MAX_POOL;
-  // two sort buffers of MAX_SORT keys, the pool's live keys [W (C + 1)]
-  // (narrow instance only), then SLOT_ARRAYS arrays of [S]
+                 int cutoff_top_n, int mode, float cutoff_prob,
+                 const Layout lay, unsigned char* ws) {
+  constexpr bool BIG = KIND == HUGE;
+  constexpr int lanes = BIG ? 1 : KIND == WIDE ? WIDE_LN : LN;
+  constexpr int pool_bits = BIG ? 32 : KIND == WIDE ? WIDE_POOL : MAX_POOL;
+  constexpr int places = BIG ? 1 : TABLE;
+  // NARROW, WIDE: two sort buffers of MAX_SORT keys, the pool's live keys
+  // [W (C + 1)] (narrow instance only), then SLOT_ARRAYS arrays of [S];
+  // HUGE: the regions of `lay` that lie in shared memory
   extern __shared__ u64 dyn[];
-  u64 (*const top)[MAX_SORT] = reinterpret_cast<u64 (*)[MAX_SORT]>(dyn);
   const int n_pool = W + W * C;
-  u64* const keys = WIDE ? pool + (size_t)blockIdx.x * n_pool : dyn + 2 * MAX_SORT;
-  float* const slot_f = reinterpret_cast<float*>(WIDE ? dyn + 2 * MAX_SORT : keys + n_pool);
+  __shared__ float logp_s[lanes], sprob_s[lanes];
+  __shared__ int32_t rank_s[lanes], order_s[lanes], included_s[lanes];
+  __shared__ unsigned struck_s[(pool_bits + 31) / 32];  // children already in the beam
+  __shared__ int hist[2][256];               // the radix select's
+  __shared__ int wcount[32], decision[3], n_sel;
+  __shared__ u64 wmin[32], wmax[32];
+  // the parent table: per distinct hash pair of the live slots, the first
+  // slot that has it and how many do
+  __shared__ u64 tab_key_s[places];
+  __shared__ int tab_first_s[places], tab_hits_s[places];
+  __shared__ int zero_first, zero_hits;  // the live slots with hashes (0, 0)
+  __shared__ int32_t started, cutlen;
+
+  u64 *keys, *top0;
+  float *slot_f, *logp, *sprob;
+  int32_t *rank, *order, *included;
+  unsigned* struck;
+  u64* tab_key;
+  int *tab_first, *tab_hits;
+  int tbits;
+  if constexpr (BIG) {
+    unsigned char* const mine = ws + (size_t)blockIdx.x * lay.ws_bytes;
+    auto region = [&](int r) -> unsigned char* {
+      return ((lay.in_smem >> r) & 1u ? reinterpret_cast<unsigned char*>(dyn) : mine) + lay.off[r];
+    };
+    slot_f = reinterpret_cast<float*>(region(0));
+    logp = reinterpret_cast<float*>(region(1));
+    sprob = logp + C;
+    rank = reinterpret_cast<int32_t*>(sprob + C);
+    order = rank + C;
+    included = order + C;
+    tab_key = reinterpret_cast<u64*>(region(2));
+    tab_first = reinterpret_cast<int*>(tab_key + (1 << lay.tbits));
+    tab_hits = tab_first + (1 << lay.tbits);
+    top0 = reinterpret_cast<u64*>(region(3));
+    struck = reinterpret_cast<unsigned*>(region(4));
+    keys = pool + (size_t)blockIdx.x * n_pool;
+    tbits = lay.tbits;
+  } else {
+    top0 = dyn;
+    keys = KIND == WIDE ? pool + (size_t)blockIdx.x * n_pool : dyn + 2 * MAX_SORT;
+    slot_f = reinterpret_cast<float*>(KIND == WIDE ? dyn + 2 * MAX_SORT : keys + n_pool);
+    logp = logp_s;
+    sprob = sprob_s;
+    rank = rank_s;
+    order = order_s;
+    included = included_s;
+    struck = struck_s;
+    tab_key = tab_key_s;
+    tab_first = tab_first_s;
+    tab_hits = tab_hits_s;
+    tbits = TABLE_BITS;
+  }
+  const int n_places = 1 << tbits;
   float *const pb = slot_f, *const pnb = pb + S, *const score = pnb + S;
   float *const npb = score + S, *const npnb = npb + S, *const exist = npnb + S;
   float *const t_pb = exist + S, *const t_pnb = t_pb + S;
@@ -306,24 +423,13 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
   int32_t *const t_hb = t_ha + S, *const t_pha = t_hb + S;
   int32_t *const t_phb = t_pha + S, *const par_idx = t_phb + S;
   int32_t* const rewrite = par_idx + S;
-  __shared__ float logp[lanes], sprob[lanes];
-  __shared__ int32_t rank[lanes], order[lanes], included[lanes];
-  __shared__ int32_t started, cutlen;
-  __shared__ unsigned struck[(pool_bits + 31) / 32];  // children already in the beam
-  __shared__ int hist[2][256];               // the radix select's
-  __shared__ int wcount[32], decision[3], n_sel;
-  __shared__ u64 wmin[32], wmax[32];
-  // the parent table: per distinct hash pair of the live slots, the first
-  // slot that has it and how many do
-  __shared__ u64 tab_key[TABLE];
-  __shared__ int tab_first[TABLE], tab_hits[TABLE];
-  __shared__ int zero_first, zero_hits;  // the live slots with hashes (0, 0)
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int b = blockIdx.x;
   const int len = lens[b];
   const size_t plane = (size_t)B * S;
+  const size_t bp_plane = (size_t)B * T * W;  // HUGE: the character plane's offset
 
   for (int w = tid; w < W; w += nt) {
     const size_t at = (size_t)b * S + w;
@@ -359,7 +465,14 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
       active = started != 0;
     }
     if (!active) {  // the same for every thread of the block
-      for (int w = tid; w < W; w += nt) bp_t[w] = (BP)(w << 8);
+      for (int w = tid; w < W; w += nt) {
+        if constexpr (BIG) {
+          bp_t[w] = w;
+          bp_t[bp_plane + w] = -1;
+        } else {
+          bp_t[w] = (BP)(w << 8);
+        }
+      }
       __syncthreads();  // every thread has read `started` before it changes
       continue;
     }
@@ -371,15 +484,30 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
         included[c] = nign[c];
       }
     } else {
-      for (int c = tid; c < C; c += nt) {
-        const float mine = sprob[c];
-        int r = 0;
-        for (int o = 0; o < C; ++o) {
-          const float other = sprob[o];
-          r += (other > mine) || (other == mine && o < c);
+      if constexpr (BIG) {
+        // the rank of a class, by sorting the classes' keys: probability
+        // descending, then class ascending (the counting below, in
+        // O(C log^2 C) instead of O(C^2))
+        const int lc = C <= 1 ? 1 : 1 << (32 - __clz(C - 1));
+        for (int c = tid; c < lc; c += nt) top0[c] = c < C ? make_key(sprob[c], c) : 0;
+        __syncthreads();
+        sort_desc_mem(top0, lc);
+        for (int r = tid; r < C; r += nt) {
+          const int c = (int)(~(uint32_t)top0[r]);
+          rank[c] = r;
+          order[r] = c;
         }
-        rank[c] = r;
-        order[r] = c;
+      } else {
+        for (int c = tid; c < C; c += nt) {
+          const float mine = sprob[c];
+          int r = 0;
+          for (int o = 0; o < C; ++o) {
+            const float other = sprob[o];
+            r += (other > mine) || (other == mine && o < c);
+          }
+          rank[c] = r;
+          order[r] = c;
+        }
       }
       __syncthreads();
       if (tid == 0) {
@@ -402,14 +530,14 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
     }
     for (int w = tid; w < W; w += nt) score[w] = lse(pb[w], pnb[w]);
     for (int i = tid; i < (n_pool + 31) / 32; i += nt) struck[i] = 0;
-    for (int i = tid; i < TABLE; i += nt) {
+    for (int i = tid; i < n_places; i += nt) {
       tab_key[i] = 0;
-      tab_first[i] = MAX_SLOTS;
+      tab_first[i] = NO_SLOT;
       tab_hits[i] = 0;
     }
     if (tid == 0) {
       n_sel = zero_hits = 0;
-      zero_first = MAX_SLOTS;
+      zero_first = NO_SLOT;
     }
     __syncthreads();
     PHASE(0);  // class logs, cutoff, scores
@@ -420,9 +548,9 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
       const u64 key = hash_pair(ha[i], hb[i]);
       int *first = &zero_first, *hits = &zero_hits;
       if (key != 0) {
-        unsigned at = table_place(key);
+        unsigned at = table_place(key, tbits);
         for (u64 seen; (seen = atomicCAS(&tab_key[at], 0ull, key)) != 0 && seen != key;)
-          at = (at + 1) & (TABLE - 1);
+          at = (at + 1) & (n_places - 1);
         first = tab_first + at;
         hits = tab_hits + at;
       }
@@ -440,8 +568,8 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
       const u64 key = hash_pair(pha[j], phb[j]);
       const int *first = &zero_first, *count = &zero_hits;
       if (key != 0) {
-        unsigned at = table_place(key);
-        while (tab_key[at] != key && tab_key[at] != 0) at = (at + 1) & (TABLE - 1);
+        unsigned at = table_place(key, tbits);
+        while (tab_key[at] != key && tab_key[at] != 0) at = (at + 1) & (n_places - 1);
         if (tab_key[at] != key) return;
         first = tab_first + at;
         count = tab_hits + at;
@@ -591,22 +719,26 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
         int at = 0;
         if (lane == 0 && count) at = atomicAdd(&n_sel, count);
         at = __shfl_sync(0xffffffffu, at, 0);
-        if (on) top[0][at + r] = keys[i];
+        if (on) top0[at + r] = keys[i];
       }
     } else {
-      for (int i = tid; i < n_live; i += nt) top[0][i] = keys[i];
+      for (int i = tid; i < n_live; i += nt) top0[i] = keys[i];
     }
     const int L = n_top <= 1 ? 1 : 1 << (32 - __clz(n_top - 1));
-    for (int i = n_top + tid; i < L; i += nt) top[0][i] = 0;  // below every key
+    for (int i = n_top + tid; i < L; i += nt) top0[i] = 0;  // below every key
     __syncthreads();
-    sort_desc(top, L);
+    if constexpr (BIG) {
+      sort_desc_mem(top0, L);
+    } else {
+      sort_desc(reinterpret_cast<u64 (*)[MAX_SORT]>(dyn), L);
+    }
     PHASE(4);  // radix select, gather, sort
 
     // ---- the winners become the new slots --------------------------------
     for (int k = tid; k < W; k += nt) {
       int s_last, s_ha, s_hb, s_pha, s_phb, src, ch;
       float s_pb, s_pnb;
-      const u64 key = top[0][k];
+      const u64 key = top0[k];
       const int flat = (int)(~(uint32_t)key);
       if (k >= n_top) {  // a dead slot: hash (0, 0), points at itself
         s_last = -1;
@@ -646,7 +778,12 @@ beam_scan_kernel(const float* __restrict__ probs,        // [B, T, C]
       t_hb[k] = s_hb;
       t_pha[k] = s_pha;
       t_phb[k] = s_phb;
-      bp_t[k] = (BP)((src << 8) | (ch + 1));
+      if constexpr (BIG) {
+        bp_t[k] = src;
+        bp_t[bp_plane + k] = ch;
+      } else {
+        bp_t[k] = (BP)((src << 8) | (ch + 1));
+      }
     }
     __syncthreads();
     for (int w = tid; w < W; w += nt) {
@@ -682,29 +819,68 @@ int next_pow2(int n) {
   return p;
 }
 
-template <typename BP, bool WIDE>
+// The huge instance's layout at (W, S, C): each region, in the order of
+// Layout, goes to dynamic shared memory while HUGE_SMEM lasts, else to the
+// block's workspace; every region starts 16-byte aligned.
+Layout huge_layout(int W, int S, int C) {
+  Layout lay{};
+  lay.tbits = TABLE_BITS;
+  while ((1 << lay.tbits) < 2 * W) ++lay.tbits;
+  lay.lsort = next_pow2(W > C ? W : C);
+  const u64 n_pool = (u64)W * (u64)(C + 1);
+  const u64 bytes[5] = {
+      (u64)SLOT_ARRAYS * S * 4,  // the per-slot arrays
+      5ull * C * 4,              // logp, sprob, rank, order, included
+      (1ull << lay.tbits) * 16,  // key, first slot, count
+      (u64)lay.lsort * 8,        // the sort buffer
+      (n_pool + 31) / 32 * 4,    // the strike-out bits
+  };
+  for (int r = 0; r < 5; ++r) {
+    const u64 size = (bytes[r] + 15) & ~15ull;
+    if (lay.smem_bytes + size <= (u64)HUGE_SMEM) {
+      lay.in_smem |= 1u << r;
+      lay.off[r] = lay.smem_bytes;
+      lay.smem_bytes += size;
+    } else {
+      lay.off[r] = lay.ws_bytes;
+      lay.ws_bytes += size;
+    }
+  }
+  return lay;
+}
+
+template <typename BP, int KIND>
 int launch_scan(const float* probs, const int32_t* lens, const int32_t* nign,
                 const int32_t* rank_static, const float* in_f,
                 const int32_t* in_i, const int32_t* in_started, float* out_f,
-                int32_t* out_i, int32_t* out_started, BP* bp, u64* pool, int B,
-                int T, int W, int S, int C, int blank, int cutoff_top_n,
-                int mode, float cutoff_prob, cudaStream_t stream) {
+                int32_t* out_i, int32_t* out_started, BP* bp, u64* pool,
+                unsigned char* ws, int B, int T, int W, int S, int C, int blank,
+                int cutoff_top_n, int mode, float cutoff_prob, cudaStream_t stream) {
   const int n_pool = W + W * C;
-  // at least one thread per key of the final sort
-  int threads = n_pool <= 512 ? 128 : n_pool <= 2048 ? 256 : n_pool <= 8192 ? 512 : 1024;
-  if (threads < next_pow2(W)) threads = next_pow2(W);
-  const size_t smem = (size_t)(2 * MAX_SORT + (WIDE ? 0 : n_pool)) * sizeof(u64) +
-                      (size_t)SLOT_ARRAYS * S * 4;
+  Layout lay{};
+  int threads;
+  size_t smem;
+  if (KIND == HUGE) {
+    lay = huge_layout(W, S, C);
+    threads = 1024;
+    smem = lay.smem_bytes;
+  } else {
+    // at least one thread per key of the final sort
+    threads = n_pool <= 512 ? 128 : n_pool <= 2048 ? 256 : n_pool <= 8192 ? 512 : 1024;
+    if (threads < next_pow2(W)) threads = next_pow2(W);
+    smem = (size_t)(2 * MAX_SORT + (KIND == WIDE ? 0 : n_pool)) * sizeof(u64) +
+           (size_t)SLOT_ARRAYS * S * 4;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      beam_scan_kernel<BP, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      beam_scan_kernel<BP, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  beam_scan_kernel<BP, WIDE><<<B, threads, smem, stream>>>(
+  beam_scan_kernel<BP, KIND><<<B, threads, smem, stream>>>(
       probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
-      out_started, bp, pool, B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob);
+      out_started, bp, pool, B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob, lay, ws);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WIDE>
+template <int KIND>
 int scan(const float* probs, const int32_t* lens, const int32_t* nign,
          const int32_t* rank_static, const float* in_f, const int32_t* in_i,
          const int32_t* in_started, float* out_f, int32_t* out_i,
@@ -713,13 +889,14 @@ int scan(const float* probs, const int32_t* lens, const int32_t* nign,
          float cutoff_prob, void* stream) {
   cudaStream_t on = static_cast<cudaStream_t>(stream);
   if (bp_wide)
-    return launch_scan<int32_t, WIDE>(probs, lens, nign, rank_static, in_f, in_i, in_started,
+    return launch_scan<int32_t, KIND>(probs, lens, nign, rank_static, in_f, in_i, in_started,
                                       out_f, out_i, out_started, static_cast<int32_t*>(bp),
-                                      pool, B, T, W, S, C, blank, cutoff_top_n, mode,
+                                      pool, nullptr, B, T, W, S, C, blank, cutoff_top_n, mode,
                                       cutoff_prob, on);
-  return launch_scan<int16_t, WIDE>(probs, lens, nign, rank_static, in_f, in_i, in_started,
+  return launch_scan<int16_t, KIND>(probs, lens, nign, rank_static, in_f, in_i, in_started,
                                     out_f, out_i, out_started, static_cast<int16_t*>(bp), pool,
-                                    B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob, on);
+                                    nullptr, B, T, W, S, C, blank, cutoff_top_n, mode,
+                                    cutoff_prob, on);
 }
 
 }  // namespace
@@ -741,9 +918,9 @@ int beam_scan(const float* probs, const int32_t* lens, const int32_t* nign,
   if (W < 1 || W > S || S > MAX_SLOTS || C < 1 || C > LN - 1 ||
       W * (C + 1) > MAX_POOL || (W > 128 && !bp_wide))
     return static_cast<int>(cudaErrorInvalidValue);
-  return scan<false>(probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
-                     out_started, bp, nullptr, B, T, W, S, C, blank, cutoff_top_n, mode,
-                     bp_wide, cutoff_prob, stream);
+  return scan<NARROW>(probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
+                      out_started, bp, nullptr, B, T, W, S, C, blank, cutoff_top_n, mode,
+                      bp_wide, cutoff_prob, stream);
 }
 
 // The wide instance: the same arguments, with nign and rank_static of 256
@@ -760,9 +937,38 @@ int beam_scan_wide(const float* probs, const int32_t* lens, const int32_t* nign,
   if (W < 1 || W > S || S > MAX_SLOTS || C < 1 || C > WIDE_LN || pool == nullptr ||
       (C == WIDE_LN && blank != C - 1) || (W > 128 && !bp_wide))
     return static_cast<int>(cudaErrorInvalidValue);
-  return scan<true>(probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
+  return scan<WIDE>(probs, lens, nign, rank_static, in_f, in_i, in_started, out_f, out_i,
                     out_started, bp, static_cast<u64*>(pool), B, T, W, S, C, blank,
                     cutoff_top_n, mode, bp_wide, cutoff_prob, stream);
+}
+
+// Bytes of device memory the huge instance's workspace needs per utterance
+// at (W, S, C): what of its layout HUGE_SMEM does not hold.
+long long beam_scan_huge_workspace(int W, int S, int C) {
+  return (long long)huge_layout(W, S, C).ws_bytes;
+}
+
+// The huge instance, for any shape: the narrow instance's arguments with
+// nign and rank_static of at least C lanes, 1 <= W <= S, 1 <= C, W (C + 1)
+// <= MAX_FLAT; bp two int32 planes [2, B, T, W] (source slot, character;
+// -1 for the same prefix one frame back); pool a scratch of B x W (C + 1)
+// keys and ws one of B x beam_scan_huge_workspace(W, S, C) bytes, both in
+// device memory.
+int beam_scan_huge(const float* probs, const int32_t* lens, const int32_t* nign,
+                   const int32_t* rank_static, const float* in_f,
+                   const int32_t* in_i, const int32_t* in_started, float* out_f,
+                   int32_t* out_i, int32_t* out_started, void* bp, int B, int T,
+                   int W, int S, int C, int blank, int cutoff_top_n, int mode,
+                   float cutoff_prob, void* pool, void* ws, void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || W > S || C < 1 || (long long)W * (C + 1) > MAX_FLAT || pool == nullptr ||
+      (ws == nullptr && huge_layout(W, S, C).ws_bytes > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_scan<int32_t, HUGE>(probs, lens, nign, rank_static, in_f, in_i, in_started,
+                                    out_f, out_i, out_started, static_cast<int32_t*>(bp),
+                                    static_cast<u64*>(pool), static_cast<unsigned char*>(ws),
+                                    B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 #ifdef K5_PHASE_CLOCKS

@@ -5,5 +5,7 @@ from stt_tpu_torch.serve.model import (
     Stream,
     TokenMetadata,
 )
+from stt_tpu_torch.serve.pool import PooledStream, StreamPool
 
-__all__ = ["CandidateTranscript", "Metadata", "Model", "Stream", "TokenMetadata"]
+__all__ = ["CandidateTranscript", "Metadata", "Model", "PooledStream", "Stream", "StreamPool",
+           "TokenMetadata"]

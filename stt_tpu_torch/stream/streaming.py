@@ -37,11 +37,7 @@ import torch
 
 from stt_tpu_torch.alphabet import Alphabet
 from stt_tpu_torch.decode.beam import make_decoder_state
-from stt_tpu_torch.decode.device import (
-    DeviceStreamingDecoder,
-    check_scan_shape,
-    prune_emissions,
-)
+from stt_tpu_torch.decode.device import DeviceStreamingDecoder, prune_emissions
 from stt_tpu_torch.decode.scorer import ScorerBase
 from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc
 from stt_tpu_torch.models import DeepSpeech
@@ -142,9 +138,6 @@ class StreamState:
         self._c, self._h = runtime.zero_state()
         self._probs_history: List[np.ndarray] = []
         if self.device_decode:
-            # a beam the kernel does not take is refused here on the card,
-            # not at the first chunk
-            check_scan_shape(beam_width, mc.n_out, dev)
             self.decoder = DeviceStreamingDecoder(
                 runtime.alphabet, beam_width, cutoff_prob, cutoff_top_n, device=dev
             )

@@ -12,7 +12,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--device", default="cuda")
     args, rest = parser.parse_known_args(argv)
-    train(initialize_globals_from_cli(rest), device=args.device)
+    train(initialize_globals_from_cli(rest, device=args.device), device=args.device)
 
 
 if __name__ == "__main__":

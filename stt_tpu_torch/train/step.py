@@ -13,12 +13,18 @@ Differences from the JAX package, by necessity:
 - the state is mutable: `TrainState` holds the model and a
   `torch.optim.Adam`, and a step updates them in place (JAX donates the
   old state);
-- dropout masks come from a `torch.Generator` seeded by (seed, step), the
-  counterpart of `jax.random.fold_in(rng, step)`; the two give different
-  masks.
+- dropout masks come from a `torch.Generator` seeded by (seed, step,
+  rank), the counterpart of `jax.random.fold_in(rng, step)`; the two give
+  different masks.
 
-The data-parallel and tensor-parallel steps are not ported yet
-(ROADMAP.md, M13).
+With several processes (`parallel.distributed`) each rank steps on its
+rows of the global batch, and the step is the one-process step on the
+whole batch, as stt_tpu's multi-process trainer runs `make_train_step` over
+global arrays: the count of finite losses is all-reduced before the mean,
+so each rank's loss is its finite losses' sum over the global count, and
+the gradients are all-reduced (summed) before the gradient norm, which is
+still summed in float64, and before Adam. Every rank then holds the same
+parameters. The tensor-parallel step is not ported yet (ROADMAP.md, M13).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from stt_tpu_torch.ctc import ctc_loss
 from stt_tpu_torch.device import resolve_device
+from stt_tpu_torch.parallel import distributed
 from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc
 from stt_tpu_torch.models import DeepSpeech, ModelConfig
 
@@ -94,21 +101,25 @@ def create_train_state(
     return TrainState(0, model, create_optimizer(model.parameters(), **optimizer_args))
 
 
-def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+def dropout_generator(seed: int, step: int, device: torch.device,
+                      rank: int = 0) -> torch.Generator:
     """The dropout masks' generator for one step: a function of (seed,
-    step) alone, so a resumed run draws the masks it would have drawn."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+    step, rank) alone, so a resumed run draws the masks it would have drawn
+    and each rank draws its own."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step + (rank << 40))
 
 
 def _loss_fn(
     model: DeepSpeech, batch: Batch, generator: Optional[torch.Generator]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(the sum of this rank's finite losses over the global batch's count
+    of finite losses, per-example losses, finite mask)."""
     logits, _ = model(
         batch.features, seq_len=batch.feature_lengths, dropout_generator=generator
     )
     losses = ctc_loss(logits, batch.feature_lengths, batch.labels, batch.label_lengths)
     finite = torch.isfinite(losses)
-    n_finite = torch.clamp(finite.sum(), min=1)
+    n_finite = torch.clamp(distributed.allreduce_(finite.sum()), min=1)
     mean_loss = torch.where(finite, losses, torch.zeros_like(losses)).sum() / n_finite
     return mean_loss, losses, finite
 
@@ -117,12 +128,19 @@ def _update(state: TrainState, batch: Batch, seed: int) -> StepMetrics:
     model, optimizer = state.model, state.optimizer
     device = batch.features.device
     optimizer.zero_grad(set_to_none=True)
-    loss, losses, finite = _loss_fn(model, batch, dropout_generator(seed, state.step, device))
+    loss, losses, finite = _loss_fn(
+        model, batch, dropout_generator(seed, state.step, device, distributed.process_index()))
     loss.backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if distributed.active():
+        # one all-reduce of every gradient, flattened, and of the loss
+        flat = distributed.allreduce_(torch.cat([g.reshape(-1) for g in grads]))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+        loss = distributed.allreduce_(loss.detach().clone())
     # float64 sums: torch's float32 norm on the CPU is ~0.2% off for a
     # tensor of 10^7 elements such as the LSTM kernel's gradient
-    norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float64)
-             for p in model.parameters() if p.grad is not None]
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float64) for g in grads]
     grad_norm = torch.linalg.vector_norm(torch.stack(norms)).float()
     optimizer.step()
     state.step += 1

@@ -21,6 +21,18 @@ counterpart of `stt_tpu.train.trainer`, on one device).
   anew).
 - `--profile_dir`: a torch.profiler trace (CPU, and CUDA on the card) of
   epoch 0's first `profile_steps` steps, as `trace.json` in that directory.
+- `--graph_augs_on_device`: the host stops at the spectrogram, and the
+  spectrogram and features augmentations and the MFCC run in one pass on
+  the step's device (`data.device_augment`) before each step. With
+  several processes it warns and keeps the host's augmentations, as
+  stt_tpu does.
+- Several processes (`--num_processes`, joined by
+  `config.maybe_initialize_distributed`): data parallelism. Each rank
+  featurizes its rows of every global batch (`row_range`), re-padded to the
+  global batch's lengths, and the step all-reduces (`train.step`), so every
+  rank holds the same parameters. Rank 0 writes the checkpoints, the
+  best-dev bookkeeping, the logs, the scalars and the profile; dev losses
+  are computed on the ranks' shares of the dev batches and merged.
 
 The step runs on the card unless the caller passes device="cpu".
 """
@@ -40,8 +52,10 @@ from stt_tpu_torch.data.augmentations import parse_augmentations
 from stt_tpu_torch.data.feeding import create_batches
 from stt_tpu_torch.data.sources import samples_from_sources
 from stt_tpu_torch.device import resolve_device
+from stt_tpu_torch.parallel import distributed, make_mesh
 from stt_tpu_torch.train.checkpoints import CheckpointManager, load_or_init_graph_for_training
 from stt_tpu_torch.train.step import (
+    Batch,
     TrainState,
     create_train_state,
     make_eval_step,
@@ -110,20 +124,31 @@ def stop_profiler(profiler: torch.profiler.profile, device: torch.device, profil
 
 
 def train(config: SttConfig, device="cuda") -> TrainState:
-    device = resolve_device(device)
+    # several processes: the config's command line joined the process group
+    # (config.maybe_initialize_distributed); every rank runs this in lockstep
+    proc_id, proc_count = distributed.process_index(), distributed.process_count()
+    is_coordinator = proc_id == 0
+    device = distributed.local_device(resolve_device(device))
+    log = log_info if is_coordinator else (lambda *args: None)
     early_training_checks(config)
     alphabet = config.resolve_alphabet()
     model_config = config.model_config(training=True)
     feature_config = config.feature_config
+    # this rank's rows of every global batch (the batch must divide over the ranks)
+    host_rows = make_mesh().rows(config.train_batch_size)
     state = create_train_state(
         model_config, seed=config.seed, device=device, learning_rate=config.learning_rate,
         beta1=config.beta1, beta2=config.beta2, epsilon=config.epsilon,
     )
 
+    # every rank reads the checkpoints (resume, the plateau's reload); rank
+    # 0 alone writes them
     manager: Optional[CheckpointManager] = None
     if config.save_checkpoint_dir:
         manager = CheckpointManager(config.save_checkpoint_dir, max_to_keep=config.max_to_keep)
-        manager.save_run_files(config.to_dict(), alphabet.serialize_text())
+        if is_coordinator:
+            manager.save_run_files(config.to_dict(), alphabet.serialize_text())
+    saver = manager if is_coordinator else None
 
     method = "init"
     if config.load_checkpoint_dir:
@@ -131,11 +156,11 @@ def train(config: SttConfig, device="cuda") -> TrainState:
             CheckpointManager(config.load_checkpoint_dir, config.max_to_keep), state,
             load_train=config.load_train, drop_source_layers=config.drop_source_layers,
         )
-    log_info(f"Initialized model from '{method}'")
+    log(f"Initialized model from '{method}'")
     if method != "init" and config.force_initialize_learning_rate:
         set_learning_rate(state, config.learning_rate)
-        log_info(f"Re-initialized learning rate to {config.learning_rate} "
-                 "(--force_initialize_learning_rate)")
+        log(f"Re-initialized learning rate to {config.learning_rate} "
+            "(--force_initialize_learning_rate)")
 
     if config.device_featurize:
         train_step = make_train_step_audio(feature_config)
@@ -166,43 +191,77 @@ def train(config: SttConfig, device="cuda") -> TrainState:
     feature_dtype = (torch.bfloat16 if model_config.dtype == torch.bfloat16
                      and not config.device_featurize else None)
 
+    # on-device graph augmentations: the host stops at the spectrogram
+    device_augment = None
+    if config.graph_augs_on_device:
+        if proc_count > 1:
+            log_warn("--graph_augs_on_device runs in one process only; keeping the host's "
+                     "graph augmentations")
+        else:
+            from stt_tpu_torch.data.device_augment import DeviceAugmentPipeline
+
+            pipeline = DeviceAugmentPipeline(augmentations, feature_config)
+            if pipeline.has_work():
+                device_augment = pipeline
+
     def batches(epoch: int, reverse=False, limit=0):
-        return create_batches(
+        """(the batch on the step's device, sample ids)."""
+        made = create_batches(
             train_samples, alphabet, feature_config, batch_size=config.train_batch_size,
             augmentations=augmentations, train_phase=True, epoch=epoch,
             total_epochs=config.epochs, reverse=reverse, limit=limit,
-            shuffle_batches=config.shuffle_batches, num_workers=input_workers,
-            prefetch=config.prefetch_batches, device_featurize=config.device_featurize,
-            feature_cache=feature_cache, feature_dtype=feature_dtype,
+            # every global batch is whole, so that each rank's rows exist
+            drop_remainder=proc_count > 1, shuffle_batches=config.shuffle_batches,
+            row_range=host_rows if proc_count > 1 else None, num_workers=input_workers,
+            prefetch=config.prefetch_batches, device_augment=device_augment,
+            device_featurize=config.device_featurize, feature_cache=feature_cache,
+            feature_dtype=feature_dtype,
         )
+        for batch, ids, *drawn in made:
+            batch = batch.to(device)
+            if drawn:  # spectrograms and their drawn parameters
+                feats, lens = device_augment.apply(batch.features, batch.feature_lengths,
+                                                   drawn[0])
+                batch = Batch(feats, lens, batch.labels, batch.label_lengths)
+            if proc_count > 1:
+                features, labels = distributed.agree_global_padding(batch.features, batch.labels)
+                batch = batch._replace(features=features, labels=labels)
+            yield batch, ids
 
     def run_eval_epoch(files: List[str]) -> float:
+        """The mean finite loss over the files; with several processes each
+        rank evaluates every proc_count-th batch and the sums merge."""
         losses: List[float] = []
-        for batch, _ in create_batches(files, alphabet, feature_config,
-                                       batch_size=config.dev_batch_size):
+        for index, (batch, _) in enumerate(create_batches(files, alphabet, feature_config,
+                                                          batch_size=config.dev_batch_size)):
+            if index % proc_count != proc_id:
+                continue
             batch_losses, _ = eval_step(state.model, batch.to(device))
             losses.extend(batch_losses.cpu().tolist())
         finite = [l for l in losses if np.isfinite(l)]
+        if proc_count > 1:
+            total, count = distributed.allreduce_sum_across_hosts([sum(finite), len(finite)])
+            return float(total / count) if count else float("inf")
         return float(np.mean(finite)) if finite else float("inf")
 
     # dummy run: the longest samples first, to find an out-of-memory batch
     if config.limit_train >= 0 and train_samples:
         probe_limit = min(config.train_batch_size * 2, len(train_samples))
         for batch, _ in batches(0, reverse=True, limit=probe_limit):
-            state, _ = train_step(state, batch.to(device), step_seed)
+            state, _ = train_step(state, batch, step_seed)
             break
-        log_info("Dummy run (longest samples) OK: no out-of-memory")
+        log("Dummy run (longest samples) OK: no out-of-memory")
 
     best_dev_loss = manager.best_dev_loss() if manager else float("inf")
     epochs_without_improvement = 0
     last_save = time.time()
     frame_seconds = feature_config.step_samples / feature_config.sample_rate
-    summary_writer = make_summary_writer(config.summary_dir)
+    summary_writer = make_summary_writer(config.summary_dir) if is_coordinator else None
 
     profiler = None
     for epoch in range(config.epochs):
         if feature_cache is not None and feature_cache.maybe_invalidate(epoch):
-            log_info(f"Feature cache invalidated at epoch {epoch} "
+            log(f"Feature cache invalidated at epoch {epoch} "
                      f"(--cache_for_epochs {config.cache_for_epochs})")
         epoch_losses: List[float] = []
         epoch_audio_s = 0.0
@@ -221,18 +280,18 @@ def train(config: SttConfig, device="cuda") -> TrainState:
                 log_error(f"Non-finite loss in step {step_no}; offending samples: {bad_ids}")
 
         for step_in_epoch, (batch, ids) in enumerate(batches(epoch)):
-            if config.profile_dir and epoch == 0 and step_in_epoch == 0:
+            if config.profile_dir and is_coordinator and epoch == 0 and step_in_epoch == 0:
                 profiler = start_profiler(device)
             epoch_audio_s += float(batch.feature_lengths.sum()) * frame_seconds
-            state, metrics = train_step(state, batch.to(device), step_seed)
+            state, metrics = train_step(state, batch, step_seed)
             pending.append((state.step, metrics, ids))
             if len(pending) > METRICS_LAG:
                 drain_metrics(pending.pop(0))
             if profiler is not None and step_in_epoch + 1 >= config.profile_steps:
                 stop_profiler(profiler, device, config.profile_dir)
                 profiler = None
-            if manager is not None and time.time() - last_save > config.checkpoint_secs:
-                manager.save(state, "last")
+            if saver is not None and time.time() - last_save > config.checkpoint_secs:
+                saver.save(state, "last")
                 last_save = time.time()
         for entry in pending:
             drain_metrics(entry)
@@ -264,36 +323,38 @@ def train(config: SttConfig, device="cuda") -> TrainState:
             msg += f" | metrics[{name}] loss {m_loss:.4f}"
             if summary_writer is not None:
                 summary_writer(state.step, {f"metrics/{name}_loss": m_loss})
-        log_info(msg)
+        log(msg)
 
+        # the merged dev loss is the same on every rank, so are these decisions
         if dev_loss is not None:
             if dev_loss < best_dev_loss - config.es_min_delta:
                 epochs_without_improvement = 0
             else:
                 epochs_without_improvement += 1
-            if manager is not None and dev_loss < best_dev_loss:
-                manager.save(state, "best_dev", dev_loss=dev_loss)
+            if saver is not None and dev_loss < best_dev_loss:
+                saver.save(state, "best_dev", dev_loss=dev_loss)
             best_dev_loss = min(best_dev_loss, dev_loss)
-        if manager is not None:
-            manager.save(state, "last")
+        if saver is not None:
+            saver.save(state, "last")
             last_save = time.time()
 
         if config.early_stop and epochs_without_improvement >= config.es_epochs:
-            log_info(f"Early stop triggered: dev loss has not improved by more than "
+            log(f"Early stop triggered: dev loss has not improved by more than "
                      f"{config.es_min_delta} in {config.es_epochs} epochs")
             break
 
         if (config.reduce_lr_on_plateau and manager is not None
                 and epochs_without_improvement > 0
                 and epochs_without_improvement % config.plateau_epochs == 0):
+            distributed.barrier()  # rank 0's best_dev is written
             try:
                 manager.restore(state, "best_dev")
             except FileNotFoundError:
                 pass
             new_lr = get_learning_rate(state) * config.plateau_reduction
             set_learning_rate(state, new_lr)
-            log_info(f"Plateau: reloaded best checkpoint, reduced LR to {new_lr}")
+            log(f"Plateau: reloaded best checkpoint, reduced LR to {new_lr}")
 
-    if manager is not None:
-        manager.save(state, "last")
+    if saver is not None:
+        saver.save(state, "last")
     return state

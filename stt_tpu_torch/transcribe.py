@@ -11,8 +11,8 @@ given. The segments go to a .tlog JSON file beside the audio (or --dst).
 
 A WAV recording at another rate than the model's is resampled, as
 `stt_tpu.transcribe` does. Several processes (--coordinator_address,
---num_processes above 1, --process_id) are not ported yet (ROADMAP.md,
-M13).
+--num_processes above 1, --process_id) join one process group and share
+the sources round-robin (`shard_sources`).
 
 Run: python -m stt_tpu_torch.transcribe --src audio.wav --dst out.tlog \\
        --model_dir exported_model [--scorer_path ...] [--device cpu]
@@ -99,6 +99,12 @@ def resolve_sources(src: str) -> List[str]:
     return [src]
 
 
+def shard_sources(sources: List[str], proc_id: int, proc_count: int) -> List[str]:
+    """A process's share of the sources: every proc_count-th, from its id
+    (the reference ran one transcription process per GPU)."""
+    return sources[proc_id::proc_count]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="stt_tpu_torch.transcribe")
     parser.add_argument("--src", required=True,
@@ -126,11 +132,17 @@ def main(argv=None):
                         help="torch device to run on (default cuda)")
     args = parser.parse_args(argv)
 
-    if args.coordinator_address or args.num_processes > 1 or args.process_id != -1:
-        raise NotImplementedError(
-            "transcription across several processes is not ported to stt_tpu_torch yet "
-            "(ROADMAP.md: M13, parallelism)"
-        )
+    proc_id, proc_count = 0, 1
+    if args.num_processes and args.num_processes > 1:
+        from stt_tpu_torch.config import SttConfig, maybe_initialize_distributed
+        from stt_tpu_torch.parallel import distributed
+
+        maybe_initialize_distributed(
+            SttConfig(coordinator_address=args.coordinator_address,
+                      num_processes=args.num_processes, process_id=args.process_id),
+            device=args.device)
+        proc_id, proc_count = distributed.process_index(), distributed.process_count()
+        args.device = distributed.local_device(args.device)
 
     from stt_tpu_torch.serve import Model
 
@@ -141,7 +153,7 @@ def main(argv=None):
 
         scorer = KenLMScorer(args.scorer_path, alpha=args.lm_alpha, beta=args.lm_beta)
 
-    sources = resolve_sources(args.src)
+    sources = shard_sources(resolve_sources(args.src), proc_id, proc_count)
     for path in sources:
         tlog = args.dst if (args.dst and len(sources) == 1) else (
             os.path.splitext(path)[0] + ".tlog"

@@ -10,7 +10,12 @@ descending, ties to the lower flat index. Only the finite keys are ranked;
 -inf ones become dead slots whose fields do not depend on which won.
 The wide instance (byte alphabets) runs the same selection over a pool in
 device memory of up to 512 x 257 keys; its replay reads the limits of both
-instances from the source.
+instances from the source. The huge instance (every other shape: beams past
+512, alphabets past 256 classes) ranks its classes and sorts its winners by
+a bitonic network in memory that every thread walks pair by pair, finds
+parents in a table of at least 2 W places, and lays its arrays out in
+shared memory or a workspace by `huge_layout`; the replays below read its
+constants from the source too.
 """
 
 import re
@@ -155,18 +160,20 @@ def test_keys_order_as_value_then_flat_index():
     assert make_key(-3e38, 16383) > 0  # every real key is above the sort's padding
 
 
-def table_place(key: int) -> int:
-    """beam_scan.cu's table_place: 10 bits of a multiplicative hash."""
-    return (((key ^ (key >> 29)) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF) >> 54
+def table_place(key: int, bits: int = 10) -> int:
+    """beam_scan.cu's table_place: `bits` bits of a multiplicative hash (10
+    in the narrow and wide instances)."""
+    return (((key ^ (key >> 29)) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF) >> (64 - bits)
 
 
-def parents_by_table(ha, hb, pha, phb, live, last, rng) -> list:
+def parents_by_table(ha, hb, pha, phb, live, last, rng, bits: int = 10) -> list:
     """The kernel's parent lookup: every live slot inserted, in any order,
-    under its hash pair (linear probing over 1,024 places, the pair (0, 0)
+    under its hash pair (linear probing over 2^bits places, the pair (0, 0)
     counted beside the table), each place keeping the first slot and the
     count; then each slot with a last label looks its parent pair up."""
-    tab, zero = {}, [512, 0]
-    keys = [None] * 1024
+    places = 1 << bits
+    tab, zero = {}, [2**31 - 1, 0]
+    keys = [None] * places
     for i in rng.permutation(len(ha)):
         if not live[i]:
             continue
@@ -174,11 +181,11 @@ def parents_by_table(ha, hb, pha, phb, live, last, rng) -> list:
         if key == 0:
             zero = [min(zero[0], i), zero[1] + 1]
             continue
-        at = table_place(key)
+        at = table_place(key, bits)
         while keys[at] is not None and keys[at] != key:
-            at = (at + 1) % 1024
+            at = (at + 1) % places
         keys[at] = key
-        first, hits = tab.get(at, (512, 0))
+        first, hits = tab.get(at, (2**31 - 1, 0))
         tab[at] = (min(first, i), hits + 1)
     out = []
     for j in range(len(ha)):
@@ -188,16 +195,16 @@ def parents_by_table(ha, hb, pha, phb, live, last, rng) -> list:
             if key == 0:
                 first, hits = zero
             else:
-                at = table_place(key)
+                at = table_place(key, bits)
                 while keys[at] is not None and keys[at] != key:
-                    at = (at + 1) % 1024
+                    at = (at + 1) % places
                 first, hits = tab.get(at, (0, 0)) if keys[at] == key else (0, 0)
             par = first if hits else 0
         out.append((par, hits))
     return out
 
 
-@pytest.mark.parametrize("W", [8, 32, 500, 512])
+@pytest.mark.parametrize("W", [8, 32, 500, 512, 1024, 3000])
 def test_parent_table_finds_what_the_scan_finds(W):
     """par = the first live slot whose hashes are j's parent hashes, hits =
     how many: hash collisions (several live slots with one pair), dead slots
@@ -221,7 +228,8 @@ def test_parent_table_finds_what_the_scan_finds(W):
     for j in range(W):
         matches = [i for i in range(W) if live[i] and ha[i] == pha[j] and hb[i] == phb[j]]
         want.append(((matches[0] if matches else 0), len(matches)) if last[j] >= 0 else (0, 0))
-    assert parents_by_table(ha, hb, pha, phb, live, last, rng) == want
+    bits = 10 if W <= 512 else huge_table_bits(W)  # the huge instance's table
+    assert parents_by_table(ha, hb, pha, phb, live, last, rng, bits) == want
     assert any(h > 1 for _, h in want) and any(h == 0 for _, h in want)
 
 
@@ -322,3 +330,132 @@ def test_wide_selection_equals_a_stable_descending_sort(kind, W, C):
     order = np.argsort(-values, kind="stable")[:W]
     assert [~k & MASK32 for k in got] == order.tolist()
     assert got == reference(values, W)
+
+
+# --- the huge instance: every other shape -----------------------------------
+
+def cu_long(name: str) -> int:
+    """A `constexpr long long` of beam_scan.cu."""
+    expr = re.search(rf"constexpr long long {name} = ([^;]+);", CSRC.read_text()).group(1)
+    return int(eval(expr.replace("LL", ""), {}, {}))
+
+
+def huge_table_bits(W: int) -> int:
+    bits = cu_constant("TABLE_BITS")
+    while (1 << bits) < 2 * W:
+        bits += 1
+    return bits
+
+
+def huge_layout(W: int, S: int, C: int) -> dict:
+    """beam_scan.cu's huge_layout: each region in order to shared memory
+    while HUGE_SMEM lasts, else to the workspace, 16-byte aligned."""
+    bits = huge_table_bits(W)
+    lsort = 1 << (max(W, C) - 1).bit_length()
+    sizes = [cu_constant("SLOT_ARRAYS") * S * 4, 5 * C * 4, (1 << bits) * 16, lsort * 8,
+             (W * (C + 1) + 31) // 32 * 4]
+    smem, ws, where = 0, 0, []
+    for size in sizes:
+        size = (size + 15) & ~15
+        if smem + size <= cu_constant("HUGE_SMEM"):
+            where.append("smem")
+            smem += size
+        else:
+            where.append("workspace")
+            ws += size
+    return {"where": where, "smem": smem, "ws": ws, "bits": bits, "lsort": lsort}
+
+
+@pytest.mark.parametrize("W,C,where", [
+    (1024, 29, ["smem"] * 5),
+    (500, 1000, ["smem"] * 5),
+    (64, 300, ["smem"] * 5),
+    (48, 256, ["smem"] * 5),
+    (500, 4096, ["smem"] * 4 + ["workspace"]),  # 256 KB of strike-out bits
+    (4096, 29, ["workspace"] + ["smem"] * 4),  # 320 KB of per-slot arrays
+])
+def test_huge_layout_fits_the_block(W, C, where):
+    """The huge instance's arrays: what shared memory holds and what goes to
+    the workspace, with the static shared memory beside HUGE_SMEM within
+    the 227 KB a block can have, and the limits the wrapper states."""
+    from stt_tpu_torch.ops import beam_kernel
+
+    assert cu_long("MAX_FLAT") == beam_kernel.MAX_FLAT
+    assert beam_kernel.instance(W, C, 0 if C == 256 else None) == "huge"
+    S = beam_kernel.state_slots(W)
+    lay = huge_layout(W, S, C)
+    assert lay["where"] == where
+    static = 2 * 256 * 4 + 32 * 4 + 3 * 4 + 4 + 2 * 32 * 8 + 4 * 4
+    assert lay["smem"] <= cu_constant("HUGE_SMEM") and lay["smem"] + static <= 227 * 1024
+    assert (1 << lay["bits"]) >= 2 * W and lay["lsort"] >= max(W, C)
+
+
+def sort_desc_mem(keys: np.ndarray, threads: int) -> np.ndarray:
+    """The huge instance's in-memory bitonic network: per stage every thread
+    takes the indices i = tid, tid + threads, ... and orders the pair (i,
+    i ^ j) with i < i ^ j, descending where i & k is 0."""
+    a = keys.copy()
+    L = len(a)
+    k = 2
+    while k <= L:
+        j = k >> 1
+        while j > 0:
+            for tid in range(min(threads, L)):
+                i = np.arange(tid, L, threads)
+                i = i[(i ^ j) > i]
+                x, y = a[i], a[i ^ j]
+                desc = (i & k) == 0
+                swap = np.where(desc, x < y, x > y)
+                a[i[swap]], a[(i ^ j)[swap]] = y[swap], x[swap]
+            j >>= 1
+        k <<= 1
+    return a
+
+
+@pytest.mark.parametrize("C", [300, 1000, 4096])
+def test_huge_class_rank_by_sorting_equals_the_count(C):
+    """Where the other instances rank a class by counting the classes above
+    it, the huge one sorts the classes' keys (probability descending, then
+    class ascending; padding keys of 0 below every real one) and reads
+    rank[order[r]] = r off the sorted keys: the same ranks, ties and zeros
+    (ignored classes) included."""
+    rng = np.random.default_rng(C)
+    sprob = rng.dirichlet(np.ones(C) * 0.3).astype(np.float32)
+    sprob[rng.integers(0, C, C // 10)] = sprob[0]  # ties
+    sprob[rng.integers(0, C, C // 20)] = 0.0  # ignored classes sort at 0
+    L = 1 << (C - 1).bit_length()
+    keys = np.zeros(L, np.uint64)
+    keys[:C] = keys_np(sprob, np.arange(C))
+    got = sort_desc_mem(keys, 1024)
+    order = (~got[:C] & np.uint64(MASK32)).astype(np.int64)
+    rank = np.empty(C, np.int64)
+    rank[order] = np.arange(C)
+    counted = np.array([np.sum((sprob > sprob[c]) | ((sprob == sprob[c]) & (np.arange(C) < c)))
+                        for c in range(C)])
+    np.testing.assert_array_equal(rank, counted)
+
+
+@pytest.mark.parametrize("kind", ["flat", "peaky", "ties", "mixed"])
+@pytest.mark.parametrize("W,C", [(1024, 29), (600, 5), (500, 1000), (64, 300), (2048, 8)])
+def test_huge_selection_equals_a_stable_descending_sort(kind, W, C):
+    """The huge instance's selection: the live keys compacted into the pool
+    in device memory by 1,024 threads, the radix select, the W winners
+    gathered in any order and sorted by the in-memory network (W may pass
+    the block's threads): the flat indices of a stable descending sort."""
+    rng = np.random.default_rng(W + C + len(kind))
+    values = pool(kind, W, C, rng)
+    live = compact_np(values, 1024)
+    assert len(live) == np.isfinite(values).sum()
+    n_top = min(W, len(live))
+    if len(live) > W:
+        prefix, shift = radix_select_np(live, W)
+        top = live[(live >> np.uint64(shift)) >= np.uint64(prefix >> shift)]
+    else:
+        top = live
+    assert len(top) == n_top
+    L = 1 << max(n_top - 1, 0).bit_length()
+    padded = np.zeros(L, np.uint64)
+    padded[:n_top] = rng.permutation(top)
+    got = sort_desc_mem(padded, 1024)[:n_top]
+    order = np.argsort(-values, kind="stable")[:n_top]
+    np.testing.assert_array_equal((~got & np.uint64(MASK32)).astype(np.int64), order)

@@ -678,37 +678,226 @@ def test_device_decode_stream_on_card_launches_k5(device, tmp_path, beam):
                          build_metadata(config, FeatureConfig(), alphabet, beam_width=beam), alphabet)
     model = Model(path)
     audio = np.random.RandomState(0).uniform(-0.3, 0.3, 24000).astype(np.float32)
-    before = (beam_kernel.beam_scan.launches, decode_device.scan.plain_scans)
+    before = beam_kernel.beam_scan.launches
     stream = model.create_stream(device_decode=True)
     stream.feed_audio_content(audio)
     text = stream.finish_stream()
     _, probs = model.stt_with_emissions(audio)
     chunks = -(-probs.shape[0] // 16)
-    assert beam_kernel.beam_scan.launches == before[0] + chunks
-    assert decode_device.scan.plain_scans == before[1]
+    assert beam_kernel.beam_scan.launches == before + chunks
     # a host array goes to the card by default and launches the kernel too
     want = decode_device.ctc_beam_search_decoder_device(
         probs[None], [probs.shape[0]], alphabet, beam_size=beam)[0][0]
-    assert beam_kernel.beam_scan.launches == before[0] + chunks + 1
+    assert beam_kernel.beam_scan.launches == before + chunks + 1
     assert text == want.transcript
 
 
 def test_shapes_beyond_the_beam_kernel_raise_on_the_card(device):
-    """The plain scan never stands in for the kernel on CUDA tensors."""
+    """Shapes past the wide instance (beam 600, 257 classes, 256 classes
+    with the blank first) no longer raise on the card: they launch K5's huge
+    instance, and the decoded results are the plain scan's on the same CUDA
+    tensors."""
     from stt_tpu_torch.alphabet import Alphabet
     from stt_tpu_torch.decode import device as decode_device
+    from stt_tpu_torch.ops import beam_kernel
 
-    probs = torch.softmax(torch.randn(1, 8, 5, generator=torch.Generator().manual_seed(0)), -1)
-    alphabet = Alphabet().init_from_labels(["a", "b", "c", " "])
-    before = decode_device.scan.plain_scans
-    with pytest.raises(ValueError, match="on the card"):
-        decode_device.ctc_beam_search_decoder_device(probs.to(device), [8], alphabet, beam_size=600)
-    with pytest.raises(ValueError, match="on the card"):
-        decode_device.device_beam_search(torch.full((1, 4, 257), 1 / 257, device=device), [4], 16)
-    with pytest.raises(ValueError, match="on the card"):  # a character 255 overflows the plane
-        decode_device.device_beam_search(torch.full((1, 4, 256), 1 / 256, device=device), [4],
-                                         16, blank_id=0)
-    assert decode_device.scan.plain_scans == before
+    for W, C, blank_id in ((600, 5, None), (16, 257, None), (16, 256, 0)):
+        probs, lens = beam_probs(2, 8, C, W + C, True)
+        probs, lens = probs.to(device), lens.to(device)
+        labels = [chr(0x4E00 + i) for i in range(C - 1)]
+        alphabet = Alphabet().init_from_labels(["-"] + labels if blank_id == 0 else labels)
+        before = beam_kernel.beam_scan.launches
+        got = decode_device.ctc_beam_search_decoder_device(
+            probs, lens.tolist(), alphabet, beam_size=W, num_results=2, blank_id=blank_id)
+        assert beam_kernel.beam_scan.launches == before + 1
+        assert beam_kernel.instance(W, C, blank_id) == "huge"
+        st, src, char = decode_device.beam_scan_plain(
+            decode_device.init_beam_state(2, W, device), probs, lens, W, 40, 1.0, blank_id)
+        scores = decode_device.logaddexp(st[0], st[1]).cpu().numpy()
+        for i in range(2):
+            want = decode_device.rebuild_results(scores[i], src[i].cpu().numpy(),
+                                                 char[i].cpu().numpy(), alphabet, 2)
+            assert [(r.tokens, r.timesteps) for r in got[i]] == \
+                [(r.tokens, r.timesteps) for r in want]
+
+
+HUGE_FIXTURES = [
+    # B, T, C, W, cutoff_top_n, cutoff_prob, seed, peaky, blank_id, ignored
+    (1, 12, 29, 1024, 40, 1.0, 30, True, None, ()),  # a beam past 512; top_n above C
+    (2, 16, 1000, 500, 40, 1.0, 31, False, None, ()),
+    (1, 12, 4096, 500, 40, 1.0, 32, True, None, ()),  # strike-out bits in the workspace
+    (2, 16, 4096, 500, 10, 0.9, 33, False, None, ()),
+    (2, 16, 256, 128, 40, 1.0, 34, False, 0, ()),  # 256 classes, the blank first
+    (2, 16, 300, 64, 400, 1.0, 35, True, None, ()),  # cutoff_top_n above C
+    (2, 16, 300, 64, 10, 0.9, 36, False, 0, (1, 2)),
+    (1, 10, 8, 2048, 40, 1.0, 37, False, None, ()),  # per-slot arrays in the workspace
+    (2, 20, 5, 600, 40, 1.0, 38, True, None, ()),
+]
+
+
+@pytest.mark.parametrize("fixture", HUGE_FIXTURES)
+def test_beam_kernel_huge_instance_matches_plain(device, fixture):
+    """K5's huge instance: the (bp_src, bp_char) planes equal the plain
+    version's bit for bit, scores to 1e-4, the final state slot for slot."""
+    from stt_tpu_torch.decode.device import beam_scan_plain, logaddexp
+    from stt_tpu_torch.ops import beam_kernel
+
+    B, T, C, W, top_n, cprob, seed, peaky, blank_id, ignored = fixture
+    probs, lens = beam_probs(B, T, C, seed, peaky)
+    probs, lens = probs.to(device), lens.to(device)
+    assert beam_kernel.instance(W, C, blank_id) == "huge"
+    before = beam_kernel.beam_scan.launches
+    state, scores, bp = beam_kernel.beam_scan(probs, lens, W, top_n, cprob, blank_id, ignored)
+    torch.cuda.synchronize()
+    assert beam_kernel.beam_scan.launches == before + 1
+    start = beam_kernel.init_state(B, device, beam_kernel.state_slots(W))
+    plain, src, char = beam_scan_plain(
+        beam_kernel.state_to_plain(start, W), probs, lens, W, top_n, cprob, blank_id, ignored)
+    assert torch.equal(bp[0], src) and torch.equal(bp[1], char)
+    want = logaddexp(plain[0], plain[1]).cpu().numpy()
+    finite = np.isfinite(want)
+    assert np.array_equal(np.isfinite(scores.cpu().numpy()), finite)
+    np.testing.assert_allclose(scores.cpu().numpy()[finite], want[finite], rtol=0, atol=1e-4)
+    for got, ref in zip(beam_kernel.state_to_plain(state, W)[2:], plain[2:]):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("W,C", [(1024, 29), (500, 4096)])
+def test_beam_kernel_huge_chunks_and_handover(device, W, C):
+    """The huge instance: chunks of 16 with the state carried equal one
+    launch, and a state made by the plain version continues in the kernel."""
+    from stt_tpu_torch.decode.device import beam_scan_plain
+    from stt_tpu_torch.ops import beam_kernel
+
+    B, T = 2, 40
+    probs, _ = beam_probs(B, T, C, 39, True)
+    probs = probs.to(device)
+    lens = torch.tensor([T, T - 5], dtype=torch.int32, device=device)
+    _, scores, (src, char) = beam_kernel.beam_scan(probs, lens, W)
+    state, parts = None, []
+    for t0 in range(0, T, 16):
+        state, chunk_scores, bp = beam_kernel.beam_scan(
+            probs[:, t0:t0 + 16].contiguous(), (lens - t0).clamp(0, 16), W, state=state)
+        parts.append(bp)
+    assert torch.equal(torch.cat([p[0] for p in parts], dim=1), src)
+    assert torch.equal(torch.cat([p[1] for p in parts], dim=1), char)
+    assert torch.equal(chunk_scores, scores)
+    plain, p_src, p_char = beam_scan_plain(
+        beam_kernel.state_to_plain(beam_kernel.init_state(B, device, beam_kernel.state_slots(W)), W),
+        probs[:, :16].contiguous(), lens.clamp(max=16), W)
+    _, scores2, (k_src, k_char) = beam_kernel.beam_scan(
+        probs[:, 16:].contiguous(), (lens - 16).clamp(min=0), W,
+        state=beam_kernel.state_from_plain(plain))
+    assert torch.equal(torch.cat([p_src, k_src], dim=1), src)
+    assert torch.equal(torch.cat([p_char, k_char], dim=1), char)
+    np.testing.assert_allclose(scores2.cpu().numpy(), scores.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+def test_pool_on_card_with_device_decode_slots(device, tmp_path):
+    """A StreamPool of 8 device-decode slots on the card: one K1 launch a
+    round at B = 8, K5 once a round for each emitting slot, and every pooled
+    transcript the single stream's."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.artifact import build_metadata, save_artifact
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.ops import beam_kernel
+    from stt_tpu_torch.ops.lstm_kernel import lstm_recurrence
+    from stt_tpu_torch.serve import Model, StreamPool
+
+    config = ModelConfig(n_hidden=64, n_cell_dim=128, n_out=4)
+    alphabet = Alphabet().init_from_labels(["a", "b", " "])
+    model = DeepSpeech(config, generator=torch.Generator().manual_seed(1))
+    path = save_artifact(str(tmp_path / "m"), model,
+                         build_metadata(config, FeatureConfig(), alphabet, beam_width=16), alphabet)
+    gpu = Model(path)
+    rs = np.random.RandomState(2)
+    audios = [rs.uniform(-0.3, 0.3, int(rs.uniform(1.0, 2.0) * 16000)).astype(np.float32)
+              for _ in range(8)]
+    pool = StreamPool(gpu, max_streams=8, device_decode=True)
+    streams = [pool.create_stream() for _ in range(8)]
+    chunk, step = pool._chunk_samples, 16 * 320
+    for s, a in zip(streams, audios):
+        s.feed_audio_content(a[:chunk])  # the priming round
+    k1, k5 = lstm_recurrence.launches, beam_kernel.beam_scan.launches
+    for s, a in zip(streams, audios):
+        s.feed_audio_content(a[chunk:chunk + step])  # one emitting round
+    assert lstm_recurrence.launches == k1 + 1
+    assert beam_kernel.beam_scan.launches == k5 + 8
+    pooled = [s.finish_stream() for s in streams]
+    for a, got in zip(audios, pooled):
+        single = gpu.create_stream(device_decode=True)
+        single.feed_audio_content(a[:chunk + step])  # what the pooled stream was fed
+        assert got == single.finish_stream()
+
+
+def test_device_augment_on_card_matches_cpu(device):
+    """The device pass on CUDA tensors against CPU tensors on the same drawn
+    parameters: lengths equal, features within 2e-3 (the MFCC's float32
+    products summed in another order); the random family repeats per seed
+    on the card, with its moments."""
+    from stt_tpu_torch.data import augmentations as augs
+    from stt_tpu_torch.data.device_augment import DeviceAugmentPipeline
+    from stt_tpu_torch.frontend import FeatureConfig
+
+    fc = FeatureConfig()
+    chain = [augs.Pitch(p=1.0, pitch="0.9:1.1"), augs.Tempo(p=1.0, factor="0.8:1.2"),
+             augs.Warp(p=1.0, num_t=2, num_f=2, warp_t=0.2, warp_f=0.1),
+             augs.FrequencyMask(p=1.0, n=2, size=4), augs.TimeMask(p=1.0, n=2, size=40.0),
+             augs.TimeMask(p=1.0, domain="features", n=1, size=30.0)]
+    pipeline = DeviceAugmentPipeline(chain, fc)
+    rs = np.random.RandomState(4)
+    lens = [180, 97, 150, 64]
+    batch = np.zeros((4, 192, fc.n_bins), np.float32)
+    for i, n in enumerate(lens):
+        batch[i, :n] = np.abs(rs.randn(n, fc.n_bins)) * 10
+    params = pipeline.draw([f"u{i}" for i in range(4)], lens, [0.3] * 4)
+    x, n = torch.from_numpy(batch), torch.tensor(lens)
+    got, got_lens = pipeline.apply(x.to(device), n.to(device), params)
+    want, want_lens = pipeline.apply(x, n, params)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-3, atol=2e-3)
+    noise = DeviceAugmentPipeline([augs.Add(p=1.0, domain="features", stddev=2.0),
+                                   augs.Dropout(p=1.0, domain="features", rate=0.2)], fc)
+    drawn = noise.draw(["a", "b", "c", "d"], lens, [0.1] * 4)
+    first, _ = noise.apply(x.to(device), n.to(device), drawn)
+    again, _ = noise.apply(x.to(device), n.to(device), drawn)
+    assert torch.equal(first, again)
+    zeros = (first[0, :lens[0]] == 0).float().mean().item()
+    assert 0.12 < zeros < 0.28
+
+
+def test_one_rank_nccl_step_equals_the_step_without_a_group(device):
+    """A group of one rank on NCCL: its train step runs the all-reduces on
+    the card, and its loss is the step's without a group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from stt_tpu_torch.parallel import distributed
+    from stt_tpu_torch.train import Batch, create_train_state, make_train_step
+
+    config = ModelConfig(n_hidden=64, n_cell_dim=128, n_out=6, dropout_rates=(0.0,) * 6)
+    rs = np.random.RandomState(0)
+    batch = Batch(torch.from_numpy(rs.randn(4, 30, 26).astype(np.float32)),
+                  torch.tensor([30, 25, 20, 12], dtype=torch.int32),
+                  torch.from_numpy(rs.randint(0, 5, (4, 6)).astype(np.int32)),
+                  torch.tensor([6, 5, 4, 3], dtype=torch.int32)).to(device)
+    losses = []
+    for grouped in (False, True):
+        if grouped:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            assert distributed.initialize(f"localhost:{port}", 1, 0, backend="nccl") == (0, 1)
+            assert dist.get_backend() == "nccl"
+        try:
+            state = create_train_state(config, seed=3, device=device)
+            _, metrics = make_train_step()(state, batch, 0)
+            losses.append(metrics.loss.item())
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+    assert losses[0] == losses[1]
 
 
 # --- the native decoder with a scorer, behind the card's model ------------
@@ -808,23 +997,21 @@ def kernel_launches():
 @pytest.mark.parametrize("mode", ["off", "prune", "full"])
 def test_evaluate_on_card_matches_cpu(device, tmp_path, mode):
     """evaluate on the card: K1 in the eval step, K5 in full mode only, no
-    training kernel, no plain beam scan; transcripts and WER those of the
-    CPU, losses within 1e-4 relative (card and CPU sum in other orders)."""
+    training kernel; transcripts and WER those of the CPU, losses within
+    1e-4 relative (card and CPU sum in other orders)."""
     import copy
 
     from stt_tpu_torch.config import SttConfig
-    from stt_tpu_torch.decode import device as decode_device
     from stt_tpu_torch.evaluate import evaluate
 
     net, _, alphabet, csv = m9_setup(tmp_path)
     config = SttConfig(test_files=[csv], alphabet_config_path=alphabet, n_hidden=64,
                        test_batch_size=2, export_beam_width=32, device_decode=mode)
-    before, plain = kernel_launches(), decode_device.scan.plain_scans
+    before = kernel_launches()
     [got] = evaluate(config, model=copy.deepcopy(net))
     launches = {k: v - before[k] for k, v in kernel_launches().items()}
     assert launches["k1"] >= 2 and launches["k2"] == launches["k3"] == launches["k4"] == 0
     assert (launches["k5"] > 0) == (mode == "full")
-    assert decode_device.scan.plain_scans == plain
     [want] = evaluate(config, model=net, device="cpu")
     assert [(r.res, r.wer, r.cer) for r in got] == [(r.res, r.wer, r.cer) for r in want]
     assert any(r.res for r in got)
@@ -834,20 +1021,18 @@ def test_evaluate_on_card_matches_cpu(device, tmp_path, mode):
 def test_evaluate_full_in_bytes_mode_on_card_matches_cpu(device, tmp_path):
     """Bytes mode (256 classes) at beam 500 runs in K5's wide instance on the
     card: transcripts and WER those of the CPU, whose plain scan
-    tests/test_torch_evaluate.py holds against stt_tpu; no plain scan."""
+    tests/test_torch_evaluate.py holds against stt_tpu."""
     import copy
 
     from stt_tpu_torch.config import SttConfig
-    from stt_tpu_torch.decode import device as decode_device
     from stt_tpu_torch.evaluate import evaluate
 
     net, _, _, csv = m9_setup(tmp_path, n_out=256, bytes_mode=True)
     config = SttConfig(test_files=[csv], bytes_output_mode=True, n_hidden=64,
                        test_batch_size=2, export_beam_width=500, device_decode="full")
-    before, plain = kernel_launches(), decode_device.scan.plain_scans
+    before = kernel_launches()
     [got] = evaluate(config, model=copy.deepcopy(net))
     assert kernel_launches()["k5"] > before["k5"]
-    assert decode_device.scan.plain_scans == plain
     [want] = evaluate(config, model=net, device="cpu")
     assert [(r.res, r.wer, r.cer) for r in got] == [(r.res, r.wer, r.cer) for r in want]
     assert any(r.res for r in got)

@@ -133,16 +133,21 @@ def test_init_state_masks_and_unpack_equal_jax():
     src, char = beam_kernel.unpack_bp(packed)
     repacked = beam_kernel.pack_bp(torch.from_numpy(src), torch.from_numpy(char))
     np.testing.assert_array_equal(repacked.numpy(), packed)
-    assert beam_kernel.supports(128, 127)
-    assert beam_kernel.supports(500, 29)  # the serving default beam, English
-    assert beam_kernel.supports(512, 31) and beam_kernel.supports(256, 63)
-    assert not beam_kernel.supports(513, 8)
-    assert beam_kernel.supports(256, 64)  # past 16,384 candidates: the wide instance
-    assert beam_kernel.supports(64, 256) and beam_kernel.supports(512, 256)  # byte alphabets
-    assert not beam_kernel.supports(64, 257)
-    assert not beam_kernel.supports(64, 256, blank_id=0)  # a character 255 overflows the plane
+    # every beam and alphabet, in one of three instances
+    for W, C, blank, kind in ((128, 127, None, "narrow"), (500, 29, None, "narrow"),
+                              (512, 31, None, "narrow"), (256, 63, None, "narrow"),
+                              (256, 64, None, "wide"), (64, 256, None, "wide"),
+                              (512, 256, None, "wide"), (513, 8, None, "huge"),
+                              (64, 257, None, "huge"), (64, 256, 0, "huge"),
+                              (1024, 29, None, "huge"), (500, 4096, None, "huge")):
+        assert beam_kernel.supports(W, C, blank)
+        assert beam_kernel.instance(W, C, blank) == kind
+    assert beam_kernel.supports(1, 2) and not beam_kernel.supports(0, 29)
+    assert not beam_kernel.supports(1 << 15, 1 << 15)  # past MAX_FLAT candidates a frame
     assert beam_kernel.is_narrow(500, 29) and beam_kernel.is_narrow(128, 127)
     assert not beam_kernel.is_narrow(256, 64) and not beam_kernel.is_narrow(8, 128)
+    assert [beam_kernel.state_slots(W) for W in (1, 128, 129, 512, 513, 1024, 1025)] == [
+        128, 128, 512, 512, 640, 1024, 1152]
 
 
 def test_state_round_trip_between_kernel_layout_and_plain():
@@ -264,53 +269,80 @@ def test_rebuild_results_on_an_empty_beam():
 
 
 def test_shapes_beyond_the_kernel_take_the_plain_scan_and_count():
-    """On the CPU a beam wider than 512 routes to the plain scan by shape
-    alone and counts itself; what the kernel takes does not count as one.
-    On the card such a shape is refused."""
+    """A beam wider than 512 is the kernel's huge instance on the card, so on
+    the CPU it takes the wrapper's plain version like every other shape: the
+    backpointers come back as the (bp_src, bp_char) pair, the wrapper counts
+    no launch, and the results equal stt_tpu's device decoder (its XLA scan)
+    at beam 600, one-shot and chunked."""
     alphabet, jax_alphabet = make_alphabets()
     rng = np.random.RandomState(5)
     probs = softmax(rng.randn(14, alphabet.size + 1) * 2.0).astype(np.float32)
-    before = device.scan.plain_scans
+    before = beam_kernel.beam_scan.launches
     narrow = device.ctc_beam_search_decoder_device([probs], [14], alphabet, beam_size=64,
                                                    device="cpu")[0]
-    assert device.scan.plain_scans == before
     wide = device.ctc_beam_search_decoder_device([probs], [14], alphabet, beam_size=600,
                                                  device="cpu")[0]
-    assert device.scan.plain_scans == before + 1
     want = jax_device.ctc_beam_search_decoder_device([probs], [14], jax_alphabet,
                                                      beam_size=600)[0]
     assert_same_results(wide, want)
     assert wide[0].transcript == narrow[0].transcript
+    state, _, bp = beam_kernel.beam_scan(torch.from_numpy(probs[None]),
+                                         torch.tensor([14], dtype=torch.int32), 600)
+    assert isinstance(bp, tuple) and bp[0].dtype == bp[1].dtype == torch.int32
+    assert state[0].shape == (2, 1, 1, 640)
     dec = device.DeviceStreamingDecoder(alphabet, 600, device="cpu")
     dec.next(torch.from_numpy(probs[:8]))
     dec.next(probs[8:])  # a host array goes to the decoder's device
-    assert device.scan.plain_scans == before + 3
     assert_same_results(dec.decode(1), wide, tol=1e-5)
-    with pytest.raises(ValueError, match="beam kernel"):
-        beam_kernel.beam_scan(torch.from_numpy(probs[None]), torch.tensor([14], dtype=torch.int32), 600)
-    with pytest.raises(ValueError, match="on the card"):
-        device.check_scan_shape(600, 5, "cuda")
-    with pytest.raises(ValueError, match="on the card"):
-        device.check_scan_shape(64, 257, torch.device("cuda", 0))
-    with pytest.raises(ValueError, match="on the card"):
-        device.check_scan_shape(64, 256, "cuda", blank_id=3)
-    device.check_scan_shape(500, 29, "cuda")
-    device.check_scan_shape(500, 256, "cuda")
-    device.check_scan_shape(600, 5, "cpu")
+    assert beam_kernel.beam_scan.launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("W,C,blank_id,cutoffs", [
+    (64, 300, None, (1.0, 40)),  # a character alphabet past 256 symbols
+    (32, 300, None, (0.95, 8)),
+    (48, 256, 0, (1.0, 40)),  # 256 classes, the blank first: a character 255
+])
+def test_large_alphabets_go_through_the_kernel_wrapper_and_equal_stt_tpu(W, C, blank_id, cutoffs):
+    """Shapes past the wide instance (the huge instance on the card) take
+    the wrapper like every other, and the decoded results equal stt_tpu's
+    ctc_beam_search_decoder_device, which runs them in its XLA scan."""
+    cutoff_prob, cutoff_top_n = cutoffs
+    labels = [chr(0x4E00 + i) for i in range(C - 1)]
+    if blank_id == 0:
+        labels = ["<blank>"] + labels
+    alphabet = Alphabet().init_from_labels(labels)
+    jax_alphabet = JaxAlphabet().init_from_labels(labels)
+    rng = np.random.RandomState(C + W)
+    logits = rng.randn(2, 12, C).astype(np.float32) * 3.0
+    logits[:, ::4, 0 if blank_id == 0 else -1] += 5.0
+    probs = softmax(logits).astype(np.float32)
+    lengths = [12, 9]
+    before = beam_kernel.beam_scan.launches
+    got = device.ctc_beam_search_decoder_device(
+        probs, lengths, alphabet, beam_size=W, cutoff_prob=cutoff_prob,
+        cutoff_top_n=cutoff_top_n, num_results=2, blank_id=blank_id, device="cpu")
+    want = jax_device.ctc_beam_search_decoder_device(
+        probs, lengths, jax_alphabet, beam_size=W, cutoff_prob=cutoff_prob,
+        cutoff_top_n=cutoff_top_n, num_results=2, blank_id=blank_id)
+    for a, b in zip(got, want):
+        assert_same_results(a, b)
+    assert beam_kernel.beam_scan.launches == before
+    assert beam_kernel.instance(W, C, blank_id) == "huge"
+    _, _, bp = device.scan(torch.from_numpy(probs), torch.tensor(lengths, dtype=torch.int32), W,
+                           cutoff_top_n, cutoff_prob, blank_id)
+    assert isinstance(bp, tuple) and int(bp[1].max()) <= C - 1
 
 
 @pytest.mark.parametrize("W,C,top_n,cprob", [(130, 5, 40, 1.0), (200, 8, 40, 1.0),
                                              (500, 29, 40, 1.0), (160, 12, 6, 0.9)])
 def test_wide_beams_go_through_the_wrapper_and_equal_the_xla_scan(W, C, top_n, cprob):
     """Beams of 129 to 512 slots are the kernel's on the card, so on the CPU
-    they take the wrapper's plain version, not the counted plain scan: the
+    they take the wrapper's plain version: the
     packed plane is int32, the state has 512 slots, and the backpointers
     equal stt_tpu's XLA scan (which is where stt_tpu sends such beams)."""
     probs, lens = fixture_probs(2, 10, C, 40 + W, False)
-    before = device.scan.plain_scans
     state, scores, packed = device.scan(
         torch.from_numpy(probs), torch.from_numpy(lens), W, top_n, cprob)
-    assert device.scan.plain_scans == before
     assert packed.dtype == torch.int32 and packed.shape == (2, 10, W)
     assert state[0].shape == (2, 2, 1, beam_kernel.WIDE_SLOTS)
     s_x, src_x, char_x = jax_device._device_beam_scan(
@@ -334,14 +366,11 @@ def test_wide_beams_go_through_the_wrapper_and_equal_the_xla_scan(W, C, top_n, c
 
 @pytest.mark.parametrize("W,C", [(32, 256), (160, 200)])
 def test_byte_alphabets_go_through_the_wrapper_and_equal_the_xla_scan(W, C):
-    """Up to 256 classes the shape is the kernel's (its wide instance on the
-    card), so on the CPU it takes the wrapper's plain version, not the
-    counted plain scan; the backpointers equal stt_tpu's XLA scan, where
+    """Up to 256 classes the shape is the kernel's wide instance on the
+    card, so on the CPU it takes the wrapper's plain version; the backpointers equal stt_tpu's XLA scan, where
     stt_tpu sends shapes its Pallas kernel does not take."""
     probs, lens = fixture_probs(2, 10, C, 70 + W, False)
-    before = device.scan.plain_scans
     _, scores, packed = device.scan(torch.from_numpy(probs), torch.from_numpy(lens), W, 40, 1.0)
-    assert device.scan.plain_scans == before
     assert packed.dtype == (torch.int16 if W <= beam_kernel.WSLOTS else torch.int32)
     s_x, src_x, char_x = jax_device._device_beam_scan(
         jnp.asarray(probs), jnp.asarray(lens), W, 40, 1.0, None, ())

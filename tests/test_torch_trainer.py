@@ -258,16 +258,31 @@ def test_flags_parse_like_the_jax_package():
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["--graph_augs_on_device", "true"], "M12"),
-    (["--coordinator_address", "localhost:1234"], "M13"),
     (["--export_tflite", "true"], "M15"),
-    (["--num_processes", "2"], "M13"),
-    (["--n_model_parallel", "2"], "M13"),
-    (["--process_id", "0"], "M13"),
+    (["--n_model_parallel", "2"], "M13, tensor parallelism"),
 ])
 def test_flags_of_unported_parts_raise(argv, where):
     with pytest.raises(NotImplementedError, match=where):
         parse_flags(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--graph_augs_on_device", "true", "--augment", "tempo[factor=0.9:1.1]"],
+    ["--coordinator_address", "localhost:1234"],
+    ["--num_processes", "2"],
+    ["--process_id", "0"],
+    ["--num_processes", "2", "--process_id", "1", "--coordinator_address", "localhost:1234"],
+])
+def test_device_augment_and_multi_process_flags_parse_like_the_jax_package(argv):
+    """The flags of on-device augmentation (M12) and of data parallelism
+    across processes (M13) are ported: they parse as stt_tpu parses them,
+    and parsing alone joins no process group."""
+    import torch.distributed as dist
+
+    got, want = parse_flags(argv).to_dict(), jax_parse_flags(argv).to_dict()
+    assert got == want
+    assert any(got[k] != SttConfig().to_dict()[k] for k in got)
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("argv", [

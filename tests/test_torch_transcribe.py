@@ -163,12 +163,69 @@ def test_resolve_sources_equals_stt_tpu(tmp_path):
     assert len(resolve_sources(str(tmp_path / "d"))) == 2
 
 
-@pytest.mark.parametrize("argv", [["--num_processes", "2"], ["--process_id", "1"],
-                                  ["--coordinator_address", "localhost:1234"]])
-def test_several_processes_are_refused(setup, argv):
-    with pytest.raises(NotImplementedError, match="M13"):
-        transcribe_main(["--src", setup["wav"], "--model_dir", setup["artifact"],
-                         "--device", "cpu", *argv])
+@pytest.mark.parametrize("count,rank", [(2, 0), (2, 1), (3, 2)])
+def test_sources_shard_round_robin_like_stt_tpu(setup, tmp_path, count, rank):
+    """Each process transcribes every count-th source from its rank, as
+    stt_tpu.transcribe slices them ([proc_id::proc_count])."""
+    from stt_tpu_torch.transcribe import shard_sources
+
+    for i in range(5):
+        (tmp_path / f"r{i}.wav").write_bytes(b"")
+    sources = resolve_sources(str(tmp_path))
+    assert sources == jax_resolve_sources(str(tmp_path))
+    assert shard_sources(sources, rank, count) == sources[rank::count]
+    shares = [shard_sources(sources, r, count) for r in range(count)]
+    assert sorted(sum(shares, [])) == sorted(sources)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argvs, timeout=120):
+    """Start one `python -m ...` process a rank, all at once, each killed if
+    it outlasts `timeout` seconds; returns their (returncode, stdout, stderr)."""
+    env = {**os.environ, "PYTHONPATH": ROOT, "CUDA_VISIBLE_DEVICES": ""}
+    procs = [subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for argv in argvs]
+    out = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise
+        out.append((proc.returncode, stdout, stderr))
+    return out
+
+
+def test_two_processes_transcribe_their_shares(setup, tmp_path):
+    """--num_processes 2 on the CPU (gloo): the ranks join one group over
+    --coordinator_address, each writes the .tlog of its share, and every
+    .tlog equals stt_tpu's transcribe_file of that recording."""
+    for i in range(3):
+        write_wav(str(tmp_path / f"r{i}.wav"), recording(30 + i, [(0.3, 1.4)], 2.0), RATE)
+    address = f"localhost:{free_port()}"
+    results = run_ranks([["stt_tpu_torch.transcribe", "--src", str(tmp_path), "--model_dir",
+                          setup["artifact"], "--beam_width", str(BEAM), "--device", "cpu",
+                          "--num_processes", "2", "--process_id", str(rank),
+                          "--coordinator_address", address] for rank in range(2)])
+    for code, stdout, stderr in results:
+        assert code == 0, stderr
+    assert "r0.wav" in results[0][1] and "r2.wav" in results[0][1]
+    assert "r1.wav" in results[1][1] and "r1.wav" not in results[0][1]
+    jax_model = JaxModel(setup["artifact"])
+    for i in range(3):
+        with open(tmp_path / f"r{i}.tlog") as f:
+            segments = json.load(f)
+        want = jax_transcribe_file(jax_model, str(tmp_path / f"r{i}.wav"), beam_width=BEAM)
+        assert segments == json.loads(json.dumps(want))
 
 
 def test_command_lines_run_on_the_cpu_when_asked(setup, tmp_path):
