@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of stt_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases k5,pool,augment,parallel]
+    python3 chip_smoke.py [--seed N] [--out REPORT.json] [--phases tp,entry]
 
 1. Setup: prints the card's name and power limit, turns TF32 off, builds
    every CUDA kernel of the package from its sources (build/kernels/), one
@@ -136,10 +136,28 @@
    losses equal each other and, within PARALLEL_LOSS_RTOL, one rank's on the
    global batch, as the merged dev loss; step ms of both; then a group of
    one rank on NCCL steps as a step without a group.
+4g. TP phase (also `--phases tp`): tensor parallelism, --n_model_parallel
+   2, on the parallel phase's data and config (full width, B = 16, one
+   epoch, dropout 0): one rank, then ranks of this script on the one card
+   over gloo on a (1 x 2) and a (2 x 2) mesh. Every rank must launch K3
+   and K4 once a step at its B / K rows (8, then 4) with the gathered
+   [2048, 8192] W_h, and K3 and K4 must agree with their plain versions
+   on each of those recurrences' own inputs and cotangents; the ranks'
+   losses and gathered parameters equal each other and one rank's within
+   the stated tolerances, as the dev loss and the first step's gradients
+   leaf by leaf; each rank's step ms and the bytes a step stages through
+   the host beside one rank's step; which gloo collectives take CUDA
+   tensors; the first forward's clipped-ReLU mask flips against one rank's.
+4h. Entry phase (also `--phases entry`, after the training phase): on the
+   training phase's checkpoint, `training_graph_inference` on a seeded 5 s
+   WAV (K1; the transcript equals the served export's), `lm_optimizer`
+   with four trials and the word scorer, `evaluate_flashlight` on the dev
+   CSV, and `evaluate_wav2vec2am` on emissions that the port's model writes
+   as .npy (K5); each one's wall ms, and no training kernel.
 5. Prints one JSON line listing every kernel (launches counted over the
-   serving, training, evaluation, input, pool, augment and parallel
-   phases' runs), the card's name and power limit, and as the last line
-   {"ok": true, "device": {...}}.
+   serving, training, evaluation, input, pool, augment, parallel, tp and
+   entry phases' runs), the card's name and power limit, and as the last
+   line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
 and prints no result. --out writes the full record as JSON.
@@ -461,7 +479,9 @@ def train_kernel_phase(device, seed: int) -> list:
         w_h = w32.to(dtype).contiguous()
         lstm = cudnn_lstm(w_h, H, device) if dtype == torch.float32 else None
         tol = TRAIN_TOL[dtype]
-        for B, T in shapes:
+        # the tp phase's model ranks: B / K = 8 and 4 rows of the training shape
+        tp_shapes = [(TRAIN_SHAPE[0] // k, TRAIN_SHAPE[1]) for k in (2, 4)]
+        for B, T in shapes + (tp_shapes if dtype == torch.float32 else []):
             name = f"{str(dtype).replace('torch.', '')} B={B} T={T}"
             x_proj = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(device).to(dtype)
             c0 = (torch.randn(B, H, generator=gen) * 0.1).to(device)
@@ -2033,39 +2053,64 @@ def parallel_config(paths: dict, seed: int, work_dir: str, **kw):
         prefetch_batches=0, summary_dir=os.path.join(work_dir, "summary"), **kw)
 
 
-def timed_training(config) -> dict:
-    """train(config) on the card with every step's loss and wall ms (the
-    step ends in a synchronize) recorded, and the launch counts set to 0
-    just before and read just after."""
+def timed_training(config, name: str = "parallel: train", factory: str = "make_train_step",
+                   must: tuple = ("k1", "k3", "k4"), first_grads: dict = None) -> tuple:
+    """train(config) on the card with every step's loss, wall ms (the step
+    ends in a synchronize) and bytes staged through the host for gloo's
+    collectives recorded, and the launch counts set to 0 just before and
+    read just after. `factory` names the trainer's step maker to time
+    (make_train_step_tp under --n_model_parallel); `must`, the kernels it
+    must launch. With `first_grads`, the gradients of the first step (the
+    ones Adam took; under tensor parallelism gathered over the model ranks)
+    are put into it. Returns (record, the state train returns)."""
+    from stt_tpu_torch.parallel import distributed
     from stt_tpu_torch.train import trainer
 
-    made = trainer.make_train_step
-    losses, step_ms = [], []
+    made = getattr(trainer, factory)
+    losses, grad_norms, step_ms, staged = [], [], [], []
 
-    def timed():
-        inner = made()
+    def timed(*args, **kw):
+        inner = made(*args, **kw)
+        mesh = args[1] if factory == "make_train_step_tp" else None
 
         def train_step(state, batch, seed=0):
             torch.cuda.synchronize()
             start = time.perf_counter()
+            before = distributed.staged_bytes[0]
             state, metrics = inner(state, batch, seed)
             losses.append(metrics.loss.item())
+            grad_norms.append(metrics.grad_norm.item())
             step_ms.append((time.perf_counter() - start) * 1e3)
+            staged.append(distributed.staged_bytes[0] - before)
+            if first_grads is not None and len(losses) == 1:
+                first_grads.update(step_gradients(state, mesh))
             return state, metrics
         return train_step
 
-    trainer.make_train_step = timed
+    setattr(trainer, factory, timed)
     try:
-        state, ms, launches = run_counted("parallel: train", lambda: trainer.train(config, "cuda"),
-                                          ("k1", "k3", "k4"))
+        state, ms, launches = run_counted(name, lambda: trainer.train(config, "cuda"), must)
     finally:
-        trainer.make_train_step = made
+        setattr(trainer, factory, made)
     dev = None  # rank 0 alone writes the scalars
     if os.path.exists(os.path.join(config.summary_dir, "scalars.jsonl")):
         with open(os.path.join(config.summary_dir, "scalars.jsonl")) as f:
             dev = [r["dev/loss"] for r in map(json.loads, f) if "dev/loss" in r]
-    return {"losses": losses, "step_ms": step_ms, "train_ms": ms, "launches": launches,
-            "dev_loss": dev, "steps": state.step}
+    return {"losses": losses, "grad_norms": grad_norms, "step_ms": step_ms,
+            "staged_bytes": staged, "train_ms": ms,
+            "launches": launches, "dev_loss": dev, "steps": state.step}, state
+
+
+def step_gradients(state, mesh) -> dict:
+    """The gradients the last step left on the state's parameters (cloned);
+    with a mesh, gathered over its model ranks (a collective)."""
+    from stt_tpu_torch.models.deepspeech import param_shapes
+    from stt_tpu_torch.parallel import gather_params
+
+    grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+    if mesh is None:
+        return grads
+    return gather_params(grads, mesh, param_shapes(state.model.config))
 
 
 def parallel_rank(rank: int, port: int, work_dir: str, seed: int) -> int:
@@ -2079,7 +2124,7 @@ def parallel_rank(rank: int, port: int, work_dir: str, seed: int) -> int:
         paths = json.load(f)
     distributed.initialize(f"localhost:{port}", PARALLEL_RANKS, rank, backend="gloo",
                            device="cuda")
-    rec = timed_training(parallel_config(paths, seed, os.path.join(work_dir, f"rank{rank}")))
+    rec, _ = timed_training(parallel_config(paths, seed, os.path.join(work_dir, f"rank{rank}")))
     rec["rank"] = rank
     with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -2139,7 +2184,7 @@ def parallel_phase(device, seed: int, work_dir: str, card: str) -> dict:
     for r in range(PARALLEL_RANKS):
         with open(os.path.join(work_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    one = timed_training(parallel_config(paths, seed, os.path.join(work_dir, "one")))
+    one, _ = timed_training(parallel_config(paths, seed, os.path.join(work_dir, "one")))
     failures = []
     if ranks[0]["losses"] != ranks[1]["losses"] or ranks[1]["dev_loss"] is not None:
         failures.append(f"the ranks' losses differ: {[r['losses'] for r in ranks]}")
@@ -3075,6 +3120,486 @@ def evaluation_phase(device, seed: int, work_dir: str, paths: dict, scorers: dic
             "launches": totals, "gpu": card}
 
 
+TP_MESHES = ((1, 2), (2, 2))  # (n_data, n_model) of the tp phase's runs
+TP_TIMEOUT_S = 500  # each rank's own limit; the phase kills the ranks past it
+# Where a mesh's column-split GEMMs round otherwise than one rank's whole
+# ones, as (2 x 2)'s do and (1 x 2)'s do not (`relu_mask_flips`: the first
+# forward's pre-activations against one rank's), a pre-activation within
+# about 1e-7 of the clipped ReLU's kink lands on its other side, the
+# sharded leaves' first gradients move (TP_GRAD_RTOL's readings) and two
+# Adam steps carry that into the losses. The limits below were set from
+# the readings of an NVIDIA H100 80GB HBM3 at 700 W. The losses against
+# one rank's: (1 x 2) 3.3e-6, (2 x 2) 2.7e-4.
+TP_LOSS_RTOL = 1e-3
+# the ranks' parameters after the epoch against one rank's: the norm of the
+# difference of the two runs' updates over the norm of one rank's update,
+# held; (1 x 2) read 3.1e-4 to 3.8e-4, (2 x 2) 6.7e-3, and the CPU tests'
+# TP runs against stt_tpu 5.3e-3 under the same limit
+# (tests/test_torch_tp.py). Three Adam steps move a parameter whose
+# gradient is near 0 by about 3 lr whatever its gradient, so the largest
+# single difference is recorded, not held.
+TP_UPDATE_RTOL = 2e-2
+# the first step's gradient norm against one rank's, from the same
+# parameters: the sums run in other orders (column-split GEMMs, the data
+# all-reduce, the CTC backward's atomics). The CPU tests read 1.1e-7 at
+# most against the one-process step.
+TP_GRAD_NORM_RTOL = 1e-4
+# the first step's gradients against one rank's, leaf by leaf: the norm of
+# the difference over the norm of one rank's gradient; (1 x 2) read 4.4e-7,
+# (2 x 2) 7.2e-5 (its mask flips). A wrong factor of K or a piece out of
+# order moves a leaf by 0.5 or more.
+TP_GRAD_RTOL = 1e-3
+
+
+def gloo_cuda_probe() -> dict:
+    """Which of gloo's tensor collectives take CUDA tensors in this torch:
+    each tried once on a small tensor on the card, over the whole group."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.arange(4 * world, dtype=torch.float32, device="cuda").reshape(2 * world, 2)
+    calls = {
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty((2 * world * world, 2)), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(x.new_empty((2, 2)), x),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except Exception as e:  # a refusal is the finding: recorded, not hidden
+            out[name] = f"refuses CUDA tensors: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def params_fingerprint(params: dict) -> dict:
+    """Per leaf: the float64 sum and sum of squares (equal bits give equal
+    fingerprints)."""
+    return {k: [float(v.double().sum()), float(v.double().square().sum())]
+            for k, v in params.items()}
+
+
+class FirstPreactivations:
+    """Records the full-width pre-activations (before the clipped ReLU) of
+    the five dense layers in the first forward that runs after it is made:
+    of `parallel.tp`'s column-parallel layers (at their gather) in a TP
+    rank, of `DeepSpeech._dense` in one rank. For the tp phase's
+    configuration, which has no dropout and no layer norm: there the
+    pre-activation is the dense layer's output before the clamp."""
+
+    LAYERS = ("layer_1", "layer_2", "layer_3", "layer_5", "layer_6")
+
+    def __init__(self, one_rank: bool = False):
+        import importlib
+
+        from stt_tpu_torch.models.deepspeech import DeepSpeech
+
+        self.values = []
+        if one_rank:
+            self.owner, self.name = DeepSpeech, "_dense"
+            made = DeepSpeech._dense
+
+            def dense(model, name, x, relu=True, **kw):
+                out = made(model, name, x, relu=False, **kw)
+                self.keep(out)
+                return torch.clamp(out, min=0.0, max=model.config.relu_clip) if relu else out
+            setattr(DeepSpeech, "_dense", dense)
+        else:
+            self.owner, self.name = importlib.import_module("stt_tpu_torch.parallel.tp"), "_gather_cols"
+            made = self.owner._gather_cols
+
+            def gather(x, full_dim, mesh):
+                out = made(x, full_dim, mesh)
+                self.keep(out)
+                return out
+            self.owner._gather_cols = gather
+        self.made = made
+
+    def keep(self, out: torch.Tensor) -> None:
+        if len(self.values) < len(self.LAYERS):
+            self.values.append(out.detach().clone())
+
+    def stop(self) -> None:
+        setattr(self.owner, self.name, self.made)
+
+
+def relu_mask_flips(got: list, want: list, relu_clip: float) -> dict:
+    """Per ReLU layer, the count of pre-activations in `got` (a mesh's, its
+    data indices' rows in order) on the other side of the clipped ReLU's
+    kinks (0 and relu_clip) than in one rank's `want`, the largest distance
+    of one rank's value from the kink among them, the largest difference
+    and the share of values equal bit for bit."""
+    out = {}
+    for name, a, b in zip(FirstPreactivations.LAYERS[:4], got, want):  # layer_6 has no ReLU
+        b = b.to(a.device)
+        flip = ((a > 0) != (b > 0)) | ((a > relu_clip) != (b > relu_clip))
+        near = torch.minimum(b.abs(), (b - relu_clip).abs())[flip]
+        out[name] = {"flips": int(flip.sum()),
+                     "largest_distance_to_kink": float(near.max()) if near.numel() else None,
+                     "max_abs_diff": float((a - b).abs().max()),
+                     "bit_equal_share": float((a == b).float().mean())}
+    return out
+
+
+def recurrence_check(call: dict) -> dict:
+    """K3 and K4 against their plain versions on one recurrence's inputs as
+    the TP step gave them (the rank's rows of the gate projection, the
+    gathered W_h) and on the cotangents its backward received. Each is held
+    at TRAIN_TOL times the largest magnitude among the plain version's
+    outputs where that passes 1: after an Adam step the cell state grows
+    far past unit scale over 256 steps, and the cotangents are the loss's."""
+    from stt_tpu_torch.ops.lstm_train import (
+        _cotangent, lstm_train_bwd, lstm_train_fwd, train_backward, train_forward,
+    )
+
+    x_proj, w_h, c0, h0, seq = call["inputs"]
+    w = w_h.to(call["dtype"]).contiguous()
+    tol = TRAIN_TOL[call["dtype"]]
+    got = lstm_train_fwd(x_proj, w, c0, h0, seq)
+    want = train_forward(x_proj, w, c0, h0, seq)
+    fwd_err = max((g - v).abs().max().item() for i, (g, v) in enumerate(zip(got, want)) if i != 2)
+    fwd_largest = max(v.abs().max().item() for i, v in enumerate(want) if i != 2)
+    assert_zs_close(got[2], want[2], tol * max(1.0, fwd_largest), f"tp K3 at {list(x_proj.shape)}")
+    hs, cs, zs = want[0], want[1], want[2]
+    d_hs, d_cT, d_hT = call["cotangents"]
+    cs_prev = torch.cat([c0[None], cs])[:hs.shape[0]].contiguous()
+    bwd_args = (zs, cs, cs_prev, _cotangent(d_hs, hs), w, seq, _cotangent(d_cT, c0),
+                _cotangent(d_hT, h0))
+    got_b = lstm_train_bwd(*bwd_args)
+    want_b = train_backward(*bwd_args)
+    torch.cuda.synchronize()
+    bwd_err = max((g - v).abs().max().item() for g, v in zip(got_b, want_b))
+    bwd_largest = max(v.abs().max().item() for v in want_b)
+    return {"x_proj": list(x_proj.shape), "w_h": list(w_h.shape), "fwd_max_abs_err": fwd_err,
+            "fwd_largest": fwd_largest, "bwd_max_abs_err": bwd_err, "bwd_largest": bwd_largest,
+            "tol": tol, "ok": (fwd_err <= tol * max(1.0, fwd_largest)
+                               and bwd_err <= tol * max(1.0, bwd_largest))}
+
+
+def tp_rank(rank: int, world: int, n_model: int, port: int, work_dir: str, seed: int) -> int:
+    """One rank of the tp phase, in a process of its own: joins a group of
+    `world` ranks over gloo with its tensors on the one card, trains with
+    --n_model_parallel n_model, records the shapes each recurrence got, and
+    writes its record (rank 0 also the gathered parameters)."""
+    sys.path.insert(0, ROOT)
+    from stt_tpu_torch.ops.lstm_train import _Recurrence
+    from stt_tpu_torch.parallel import distributed
+
+    with open(os.path.join(work_dir, "paths.json")) as f:
+        paths = json.load(f)
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo", device="cuda")
+    probe = gloo_cuda_probe()
+    shapes, calls = [], []
+    forward, backward = _Recurrence.forward, _Recurrence.backward
+
+    def recording(ctx, x_proj, w_h, c0, h0, seq, compute_dtype):
+        shapes.append([list(x_proj.shape), list(w_h.shape)])
+        ctx.call = len(calls)
+        calls.append({"inputs": [t.detach().clone() for t in (x_proj, w_h, c0, h0, seq)],
+                      "dtype": compute_dtype})
+        return forward(ctx, x_proj, w_h, c0, h0, seq, compute_dtype)
+
+    def recording_backward(ctx, *cotangents):
+        calls[ctx.call]["cotangents"] = [None if d is None else d.detach().clone()
+                                         for d in cotangents]
+        return backward(ctx, *cotangents)
+
+    _Recurrence.forward = staticmethod(recording)
+    _Recurrence.backward = staticmethod(recording_backward)
+    pre = FirstPreactivations()
+    config = parallel_config(paths, seed, os.path.join(work_dir, f"rank{rank}"),
+                             n_model_parallel=n_model)
+    # the dev batches go round-robin over the ranks; a rank with one runs K1
+    with open(paths["dev"]) as f:
+        dev_batches = -(-(sum(1 for _ in f) - 1) // config.dev_batch_size)
+    grads = {}
+    rec, state = timed_training(config, "tp: train", "make_train_step_tp",
+                                ("k1", "k3", "k4") if rank < dev_batches else ("k3", "k4"),
+                                first_grads=grads)
+    _Recurrence.forward, _Recurrence.backward = staticmethod(forward), staticmethod(backward)
+    pre.stop()
+    params = {k: v.detach() for k, v in state.params.items()}
+    rec.update(rank=rank, recurrence_shapes=shapes, fingerprint=params_fingerprint(params),
+               gloo_cuda=probe, recurrence_checks=[recurrence_check(c) for c in calls])
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in params.items()}, os.path.join(work_dir, "params.pt"))
+        torch.save({k: v.cpu() for k, v in grads.items()}, os.path.join(work_dir, "grads.pt"))
+    if rank % n_model == 0:  # each data index's rows, from its first model rank
+        torch.save([v.cpu() for v in pre.values],
+                   os.path.join(work_dir, f"pre{rank // n_model}.pt"))
+    with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """Tensor parallelism on the one card: the full-width model, the
+    training phase's data, dropout 0, one epoch at B = 16, trained by one
+    rank, then by ranks (processes of this script, gloo passed to
+    `initialize`, their tensors on the card) on a (1 x 2) and a (2 x 2) mesh
+    with --n_model_parallel 2. Holds: every rank launches K3 and K4 once a
+    step, at its B / K rows (8, then 4) of the gate projection with the
+    gathered [2048, 8192] W_h; the ranks' losses are equal to each other
+    and, within TP_LOSS_RTOL, to one rank's, as is the merged dev
+    loss; the first step's gradient norm is one rank's within
+    TP_GRAD_NORM_RTOL; the ranks' gathered parameters are equal bit for bit
+    (by fingerprint) and rank 0's updates are one rank's within
+    TP_UPDATE_RTOL; the first step's gradients, gathered, are one rank's
+    leaf by leaf within TP_GRAD_RTOL; K3 and K4 agree with their plain
+    versions on each of the ranks' recurrences' own inputs and cotangents
+    (`recurrence_check`). Records each rank's step ms and the bytes a step
+    stages through the host beside one rank's step, what gloo takes on CUDA
+    tensors, and the first forward's clipped-ReLU mask flips against one
+    rank's (`relu_mask_flips`)."""
+    from stt_tpu_torch.frontend import FeatureConfig
+    from stt_tpu_torch.train import create_train_state
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    paths = write_dataset(os.path.join(work_dir, "data"), np.random.RandomState(seed + 1),
+                          FeatureConfig().sample_rate)
+    one_grads, one_pre = {}, FirstPreactivations(one_rank=True)
+    one, one_state = timed_training(parallel_config(paths, seed, os.path.join(work_dir, "one")),
+                                    "tp: one rank", first_grads=one_grads)
+    one_pre.stop()
+    model_config = parallel_config(paths, seed, work_dir).model_config(training=True)
+    init = create_train_state(model_config, seed=seed, device=device).params
+    one_update = {k: (v.detach() - init[k].detach()) for k, v in one_state.params.items()}
+    del one_state
+    failures, meshes = [], []
+    for n_data, n_model in TP_MESHES:
+        world = n_data * n_model
+        mesh_dir = os.path.join(work_dir, f"{n_data}x{n_model}")
+        os.makedirs(mesh_dir)
+        with open(os.path.join(mesh_dir, "paths.json"), "w") as f:
+            json.dump(paths, f)
+        port = free_port()
+        start = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                                   "--tp-rank", str(r), "--tp-world", str(world),
+                                   "--tp-model", str(n_model), "--parallel-port", str(port),
+                                   "--parallel-dir", mesh_dir], cwd=ROOT)
+                 for r in range(world)]
+        try:
+            for proc in procs:
+                proc.wait(timeout=TP_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if any(proc.returncode != 0 for proc in procs):
+            raise AssertionError(f"tp {n_data}x{n_model}: ranks exited "
+                                 f"{[p.returncode for p in procs]}")
+        wall_s = time.perf_counter() - start
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(mesh_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        tag = f"tp {n_data}x{n_model}"
+        rows = TRAIN_SHAPE[0] // world
+        H = model_config.n_cell_dim
+        for rec in ranks:
+            if rec["losses"] != ranks[0]["losses"] or rec["fingerprint"] != ranks[0]["fingerprint"]:
+                failures.append(f"{tag}: rank {rec['rank']}'s losses or parameters differ from "
+                                f"rank 0's")
+            if not rec["launches"]["k3"] == rec["launches"]["k4"] == rec["steps"] == 3:
+                failures.append(f"{tag}: rank {rec['rank']}: every step must launch K3 and K4: "
+                                f"{rec['launches']}")
+            if any(x[1] != rows or x[2] != 4 * H or w != [H, 4 * H]
+                   for x, w in rec["recurrence_shapes"]) or len(rec["recurrence_shapes"]) != 3:
+                failures.append(f"{tag}: rank {rec['rank']}'s recurrences ran at "
+                                f"{rec['recurrence_shapes']}, not {rows} rows with the gathered "
+                                f"[{H}, {4 * H}] W_h")
+            checks = rec["recurrence_checks"]
+            if len(checks) != 3 or not all(c["ok"] for c in checks):
+                failures.append(f"{tag}: rank {rec['rank']}'s K3/K4 on its recurrences' own "
+                                f"inputs against the plain versions: {checks}")
+        if not np.allclose(ranks[0]["losses"], one["losses"], rtol=TP_LOSS_RTOL, atol=0):
+            failures.append(f"{tag}: losses {ranks[0]['losses']} vs one rank's {one['losses']}")
+        grad_norm_rel = abs(ranks[0]["grad_norms"][0] / one["grad_norms"][0] - 1)
+        if not grad_norm_rel <= TP_GRAD_NORM_RTOL:
+            failures.append(f"{tag}: the first step's gradient norm {ranks[0]['grad_norms'][0]} "
+                            f"vs one rank's {one['grad_norms'][0]}")
+        if not (ranks[0]["dev_loss"] and np.allclose(ranks[0]["dev_loss"], one["dev_loss"],
+                                                      rtol=TP_LOSS_RTOL, atol=0)):
+            failures.append(f"{tag}: dev losses {ranks[0]['dev_loss']} vs {one['dev_loss']}")
+        rows_pre = [torch.load(os.path.join(mesh_dir, f"pre{d}.pt"), weights_only=True)
+                    for d in range(n_data)]
+        flips = relu_mask_flips([torch.cat(layer).to(device) for layer in zip(*rows_pre)],
+                                one_pre.values, model_config.relu_clip)
+        grads = torch.load(os.path.join(mesh_dir, "grads.pt"), weights_only=True)
+        grad_rel = {name: float((grads[name].to(device) - want).double().norm()
+                                / max(float(want.double().norm()), 1e-30))
+                    for name, want in one_grads.items()}
+        if sorted(grads) != sorted(one_grads) or not max(grad_rel.values()) <= TP_GRAD_RTOL:
+            failures.append(f"{tag}: the first step's gradients against one rank's, leaf by "
+                            f"leaf: {grad_rel}")
+        params = torch.load(os.path.join(mesh_dir, "params.pt"), weights_only=True)
+        diff_sq = ref_sq = max_abs = 0.0
+        for name, update in one_update.items():
+            delta = params[name].to(device) - init[name].detach() - update
+            diff_sq += float(delta.double().square().sum())
+            ref_sq += float(update.double().square().sum())
+            max_abs = max(max_abs, float(delta.abs().max()))
+        update_rel = (diff_sq / ref_sq) ** 0.5
+        if not update_rel <= TP_UPDATE_RTOL:
+            failures.append(f"{tag}: parameters after the epoch differ from one rank's: update "
+                            f"{update_rel:.3g} relative, {max_abs:.3g} at most")
+        loss_rel = float(np.max(np.abs(np.array(ranks[0]["losses"]) / np.array(one["losses"]) - 1)))
+        meshes.append({
+            "mesh": [n_data, n_model], "ranks": world, "rows_per_recurrence": rows,
+            "wall_s": wall_s, "rank_step_ms": [r["step_ms"] for r in ranks],
+            "rank_staged_bytes_per_step": [r["staged_bytes"] for r in ranks],
+            "rank_train_ms": [r["train_ms"] for r in ranks],
+            "losses": ranks[0]["losses"], "dev_loss": ranks[0]["dev_loss"],
+            "loss_rel_err_vs_one_rank": loss_rel, "update_rel_err_vs_one_rank": update_rel,
+            "first_grad_norm_rel_err_vs_one_rank": grad_norm_rel,
+            "first_grads_rel_err_vs_one_rank": grad_rel, "relu_mask_flips": flips,
+            "recurrence_checks": [c for r in ranks for c in r["recurrence_checks"]],
+            "grad_norms": ranks[0]["grad_norms"],
+            "param_max_abs_err_vs_one_rank": max_abs,
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in ("k1", "k3", "k4")},
+            "rank_launches": [r["launches"] for r in ranks],
+            "recurrence_shapes": ranks[0]["recurrence_shapes"]})
+    rec = {"meshes": meshes, "one_rank": one, "gloo_cuda": ranks[0]["gloo_cuda"],
+           "backend": "gloo, the ranks on one card", "loss_tol": TP_LOSS_RTOL,
+           "update_tol": TP_UPDATE_RTOL, "grad_norm_tol": TP_GRAD_NORM_RTOL,
+           "grad_tol": TP_GRAD_RTOL, "gpu": card,
+           "launches": {k: one["launches"][k] + sum(m["launches"][k] for m in meshes)
+                        for k in ("k1", "k3", "k4")}}
+    print("tp", json.dumps(rec), flush=True)
+    if failures:
+        raise AssertionError("tp phase: " + "; ".join(failures))
+    return rec
+
+
+ENTRY_FLASHLIGHT_BEAM = 16  # evaluate_flashlight's beam (its host decoder is pure Python)
+ENTRY_LM_TRIALS = 4
+
+
+def entry_phase(device, seed: int, work_dir: str, paths: dict, scorers: dict, card: str) -> dict:
+    """The other entry points on the training phase's full-width checkpoint
+    and dev CSV (8 utterances), on the card; none may launch a training
+    kernel:
+    - `training_graph_inference` on a seeded 5 s WAV at beam 500: K1, and the
+      transcript of the checkpoint's export served by `Model(dir).stt` on
+      the same file;
+    - `lm_optimizer`, ENTRY_LM_TRIALS trials with the word scorer: K1 once a
+      batch of the one acoustic pass;
+    - `evaluate_flashlight` (lexicon, from the scorer's vocabulary, beam
+      ENTRY_FLASHLIGHT_BEAM): K1;
+    - `evaluate_wav2vec2am` without a scorer on emissions that the port's
+      model computes and writes as .npy (the model's 29 classes as a
+      wav2vec2 AM with the blank last): K5 (the batch device decode at
+      beam 500), and the transcripts of the batch device decoder on the same
+      probabilities in the framework's own class layout.
+    Records each one's wall ms."""
+    import dataclasses
+
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.data import write_wav
+    from stt_tpu_torch.data.feeding import create_batches
+    from stt_tpu_torch.decode.device import ctc_beam_search_decoder_device
+    from stt_tpu_torch.evaluate import load_model
+    from stt_tpu_torch.evaluate_flashlight import evaluate_flashlight
+    from stt_tpu_torch.evaluate_wav2vec2am import evaluate_wav2vec2am, read_csv_entries
+    from stt_tpu_torch.export import export
+    from stt_tpu_torch.lm_optimizer import compute_lm_optimization
+    from stt_tpu_torch.serve import Model
+    from stt_tpu_torch.train.step import make_eval_step
+    from stt_tpu_torch.training_graph_inference import do_single_file_inference
+
+    out_dir = os.path.join(work_dir, "entry")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    config = SttConfig(
+        test_files=[paths["dev"]], alphabet_config_path=paths["alphabet"], n_hidden=2048,
+        test_batch_size=8, beam_width=500, export_beam_width=500,
+        checkpoint_dir=paths["checkpoints"], export_dir=os.path.join(out_dir, "export"), seed=seed)
+    fc = config.feature_config
+    runs, totals, failures = [], {}, []
+
+    def counted(name: str, fn, must: tuple):
+        result, ms, launches = run_counted(name, fn, must)
+        for key, n in launches.items():
+            totals[key] = totals.get(key, 0) + n
+        rec = {"run": name, "wall_ms": ms, "launches": launches, "gpu": card}
+        runs.append(rec)
+        return result, rec
+
+    # ---- training_graph_inference on 5 s, against the export's Model.stt ----
+    audio = utterance(5.0, fc.sample_rate, np.random.RandomState(seed + 3))
+    wav = os.path.join(out_dir, "five_seconds.wav")
+    write_wav(wav, audio, fc.sample_rate)
+    do_single_file_inference(config, wav)  # warm-up
+    text, rec = counted("training_graph_inference", lambda: do_single_file_inference(config, wav),
+                        ("k1",))
+    export(config)
+    served, _ = counted("Model.stt of the export", lambda: Model(config.export_dir).stt(audio),
+                        ("k1",))
+    rec.update(transcript=text, served=served)
+    print("entry", json.dumps(rec), flush=True)
+    if text != served:
+        failures.append(f"training_graph_inference gave {text!r}, the served export {served!r}")
+
+    # ---- lm_optimizer with the word scorer ---------------------------------
+    scored = dataclasses.replace(config, scorer_path=scorers["alphabet"]["path"])
+    best, rec = counted("lm_optimizer", lambda: compute_lm_optimization(
+        scored, n_trials=ENTRY_LM_TRIALS), ("k1",))
+    rec.update(trials=ENTRY_LM_TRIALS, best=list(best))
+    print("entry", json.dumps(rec), flush=True)
+
+    # ---- evaluate_flashlight (lexicon from the scorer's vocabulary) ---------
+    [res], rec = counted("evaluate_flashlight", lambda: evaluate_flashlight(
+        scored, decoder_type="lexicon", beam_size=ENTRY_FLASHLIGHT_BEAM), ("k1",))
+    rec.update(beam=ENTRY_FLASHLIGHT_BEAM, samples=len(res),
+               wer=float(np.mean([r.wer for r in res])), transcripts=[r.res for r in res])
+    print("entry", json.dumps(rec), flush=True)
+    if len(res) != 8:
+        failures.append(f"evaluate_flashlight scored {len(res)} of 8 samples")
+
+    # ---- evaluate_wav2vec2am on the model's own emissions -------------------
+    am_dir = os.path.join(out_dir, "am")
+    os.makedirs(os.path.join(am_dir, "emissions"))
+    with open(os.path.join(am_dir, "config.json"), "w") as f:
+        json.dump({"alphabet_labels": LABELS + ["<blank>"], "blank_id": len(LABELS)}, f)
+    alphabet = config.resolve_alphabet()
+    model = load_model(config, device)
+    eval_step = make_eval_step()
+    by_stem = {}
+    for batch, ids in create_batches([paths["dev"]], alphabet, fc, batch_size=1):
+        _, logits = eval_step(model, batch.to(device))
+        stem = os.path.splitext(os.path.basename(ids[0]))[0]
+        by_stem[stem] = torch.log_softmax(logits[0], dim=-1).cpu().numpy()
+        np.save(os.path.join(am_dir, "emissions", stem + ".npy"), by_stem[stem])
+    # in the CSV's order, as evaluate_wav2vec2am reads them
+    emitted = [by_stem[os.path.splitext(os.path.basename(wav_path))[0]]
+               for wav_path, _ in read_csv_entries([paths["dev"]])]
+    del model
+    res, rec = counted("evaluate_wav2vec2am", lambda: evaluate_wav2vec2am(
+        [paths["dev"]], am_dir, emissions_dir=os.path.join(am_dir, "emissions"),
+        beam_width=500), ("k5",))
+    # the same probabilities through the batch device decoder in the
+    # framework's own class layout (blank last, implied)
+    probs = [np.exp(e) for e in emitted]
+    want = ctc_beam_search_decoder_device(probs, [len(p) for p in probs], alphabet,
+                                          beam_size=500)
+    rec.update(samples=len(res), transcripts=[r.res for r in res])
+    print("entry", json.dumps(rec), flush=True)
+    if [r.res for r in res] != [w[0].transcript for w in want]:
+        failures.append(f"evaluate_wav2vec2am gave {[r.res for r in res]}, the device decoder "
+                        f"{[w[0].transcript for w in want]}")
+    if failures:
+        raise AssertionError("entry phase: " + "; ".join(failures))
+    return {"runs": runs, "launches": totals, "gpu": card}
+
+
 def build_native_decoder(out: dict) -> None:
     """Build (g++) and load the port's native CTC decoder; records the
     seconds it took and the library's path in `out`, or the error."""
@@ -3098,13 +3623,17 @@ def main() -> int:
                              "its source")
     parser.add_argument("--phases", default="",
                         help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation, "
-                             "input, pool, augment, parallel) to run alone (evaluation trains "
-                             "its checkpoint first), for work on a kernel, the host decoder or a "
-                             "module: prints their records and no result line")
-    # one rank of the parallel phase, in a process that phase starts
+                             "input, pool, augment, parallel, tp, entry) to run alone "
+                             "(evaluation and entry train their checkpoint first), for work on "
+                             "a kernel, the host decoder or a module: prints their records and "
+                             "no result line")
+    # one rank of the parallel or the tp phase, in a process that phase starts
     parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--parallel-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--parallel-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-model", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3112,6 +3641,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if args.parallel_rank is not None:
         return parallel_rank(args.parallel_rank, args.parallel_port, args.parallel_dir, args.seed)
+    if args.tp_rank is not None:
+        return tp_rank(args.tp_rank, args.tp_world, args.tp_model, args.parallel_port,
+                       args.parallel_dir, args.seed)
     from stt_tpu_torch.device import resolve_device
     from stt_tpu_torch.ops import _build
 
@@ -3145,13 +3677,15 @@ def main() -> int:
                 decoder_phase(device, args.seed, build_scorers(os.path.join(work_dir, "lm"), args.seed),
                               decoder_inputs(device, args.seed, os.path.join(work_dir, "model")))
                 continue
-            if name == "evaluation":  # on the checkpoint the training phase makes
+            if name in ("evaluation", "entry"):  # on the checkpoint the training phase makes
                 scorers = build_scorers(os.path.join(work_dir, "lm"), args.seed)
                 training = training_phase(device, args.seed, os.path.join(work_dir, "train"))
-                evaluation_phase(device, args.seed, os.path.join(work_dir, "train"),
-                                 training["paths"], scorers, card)
+                phase = evaluation_phase if name == "evaluation" else entry_phase
+                phase(device, args.seed, os.path.join(work_dir, "train"), training["paths"],
+                      scorers, card)
                 continue
-            modules = {"pool": pool_phase, "augment": augment_phase, "parallel": parallel_phase}
+            modules = {"pool": pool_phase, "augment": augment_phase, "parallel": parallel_phase,
+                       "tp": tp_phase}
             if name in modules:
                 modules[name](device, args.seed, os.path.join(work_dir, name), card)
                 continue
@@ -3179,6 +3713,9 @@ def main() -> int:
     augment = augment_phase(device, args.seed, os.path.join(work_dir, "augment"), card)
     parallel = parallel_phase(device, args.seed, os.path.join(work_dir, "parallel"), card)
     one_rank = parallel["one_rank"]["launches"]
+    tp = tp_phase(device, args.seed, os.path.join(work_dir, "tp"), card)
+    entry = entry_phase(device, args.seed, os.path.join(work_dir, "train"), training["paths"],
+                        scorers, card)
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
     main_shape = next(r for r in k1 if (r["dtype"], r["B"], r["T"]) == ("float32", 1, 16))
@@ -3189,7 +3726,8 @@ def main() -> int:
         "replaces": "stt_tpu/ops/lstm_kernel.py:44",
         "launches": (sum(r["k1_launches"] for r in serving["requests"])
                      + training["launches"]["k1"] + evaluation["launches"]["k1"]
-                     + pool["launches"]["k1"] + parallel["launches"]["k1"] + one_rank["k1"]),
+                     + pool["launches"]["k1"] + parallel["launches"]["k1"] + one_rank["k1"]
+                     + tp["launches"]["k1"] + entry["launches"]["k1"]),
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -3208,7 +3746,8 @@ def main() -> int:
             "source": "stt_tpu_torch/ops/csrc/lstm_train.cu",
             "replaces": f"stt_tpu/ops/lstm_train.py:{line}",
             "launches": (training["launches"][key] + inputs["launches"][key]
-                         + augment["launches"][key] + parallel["launches"][key] + one_rank[key]),
+                         + augment["launches"][key] + parallel["launches"][key] + one_rank[key]
+                         + tp["launches"][key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -3232,7 +3771,8 @@ def main() -> int:
             "source": f"stt_tpu_torch/ops/csrc/{source}",
             "replaces": replaces,
             "launches": (sum(r["launches"][key] for r in serving["requests"])
-                         + evaluation["launches"][key] + pool["launches"].get(key, 0)),
+                         + evaluation["launches"][key] + pool["launches"].get(key, 0)
+                         + entry["launches"][key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -3247,7 +3787,8 @@ def main() -> int:
                        "k5": k5, "k5_phases": k5_phases, "native_build": native_build,
                        "serving": serving, "decoder": decoder, "training": training,
                        "evaluation": evaluation, "input": inputs, "pool": pool,
-                       "augment": augment, "parallel": parallel, "kernels": kernels},
+                       "augment": augment, "parallel": parallel, "tp": tp, "entry": entry,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {card}")

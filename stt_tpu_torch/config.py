@@ -4,9 +4,10 @@ and defaults, so a run script written for one package runs the other).
 
 Flags of parts that are not ported yet raise NotImplementedError, naming
 their ROADMAP.md slice, when they are set away from their defaults (see
-`NOT_PORTED`: --export_tflite, and --n_model_parallel above 1, tensor
-parallelism). --num_processes, --process_id and --coordinator_address run
-data parallelism across processes (`maybe_initialize_distributed`).
+`NOT_PORTED`: --export_tflite). --num_processes, --process_id and
+--coordinator_address run data parallelism across processes
+(`maybe_initialize_distributed`); --n_model_parallel K lays the ranks out on
+a (num_processes / K, K) mesh and trains tensor-parallel.
 `fused_lstm` stays for the flag set's sake, and only at its default: the
 port has no scan to fall back to, and every LSTM on the card runs in its
 kernels.
@@ -28,7 +29,6 @@ from stt_tpu_torch.models import ModelConfig
 # flag -> (its default, the ROADMAP.md slice that ports it)
 NOT_PORTED = {
     "export_tflite": (False, "M15, compat"),
-    "n_model_parallel": (1, "M13, tensor parallelism"),
 }
 DEVICE_DECODE_MODES = ("auto", "full", "prune", "off")  # stt_tpu's; auto = prune
 

@@ -1,8 +1,10 @@
 from stt_tpu_torch.decode.beam import (
     DecodeResult,
     DecoderState,
+    Wav2vec2DecoderState,
     ctc_beam_search_decoder,
     ctc_beam_search_decoder_batch,
+    ctc_beam_search_decoder_for_wav2vec2am,
     make_decoder_state,
 )
 from stt_tpu_torch.decode.scorer import ScorerBase
@@ -13,7 +15,9 @@ __all__ = [
     "DecoderState",
     "DictionaryTrie",
     "ScorerBase",
+    "Wav2vec2DecoderState",
     "ctc_beam_search_decoder",
     "ctc_beam_search_decoder_batch",
+    "ctc_beam_search_decoder_for_wav2vec2am",
     "make_decoder_state",
 ]

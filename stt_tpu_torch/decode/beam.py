@@ -22,7 +22,9 @@ path_trie.cpp) — the WER gates depend on its subtle semantics:
   when a higher-probability path claims the prefix (path_trie.cpp:159-190).
 - decode() rescoring of the trailing partial word (cpp:288-301).
 
-A copy of the Python decoder of stt_tpu/decode/beam.py, and its factory:
+A copy of the Python decoder of stt_tpu/decode/beam.py, its wav2vec2
+variant (`Wav2vec2DecoderState`: any blank index, ignored symbols, AM
+tokens remapped onto the scorer's alphabet), and its factory:
 `make_decoder_state` takes the native C++ decoder (decode/native.py) by
 default, as stt_tpu does, but never falls back to this module's.
 """
@@ -591,3 +593,95 @@ def ctc_beam_search_decoder_batch(
         return [one(p) for p in items]
     with ThreadPoolExecutor(max_workers=num_processes) as pool:
         return list(pool.map(one, items))
+
+
+class Wav2vec2DecoderState(DecoderState):
+    """Beam search for external (wav2vec2-style) acoustic models whose
+    class layout differs from this framework's convention
+    (ctc_beam_search_decoder.cpp:73-110 CTCDecoderForWav2vec2AM):
+
+    - blank may be any index (wav2vec2 uses 0), not alphabet_size;
+    - some AM symbols (e.g. <pad>/<s>/</s> controls) are ignored
+      entirely during expansion;
+    - AM token ids are remapped onto scorer-alphabet ids so the
+      vocabulary trie and LM n-grams line up.
+
+    `am_alphabet` decodes AM ids to strings; the scorer alphabet (from
+    the DecoderState's `alphabet` argument) defines prefix labels.
+    """
+
+    def __init__(
+        self,
+        alphabet: Alphabet,
+        beam_size: int,
+        blank_id: int,
+        am_alphabet: Optional[Alphabet] = None,
+        ignored_symbols: Sequence[int] = (),
+        cutoff_prob: float = 1.0,
+        cutoff_top_n: int = 40,
+        scorer: Optional[ScorerBase] = None,
+        hot_words: Optional[Dict[str, float]] = None,
+    ):
+        super().__init__(
+            alphabet, beam_size, cutoff_prob, cutoff_top_n, scorer, hot_words
+        )
+        self.blank_id = blank_id
+        self.ignored = set(int(i) for i in ignored_symbols)
+        self._am_to_scorer: Dict[int, int] = {}
+        if am_alphabet is not None:
+            for am_token in range(am_alphabet.size):
+                if am_token == blank_id or am_token in self.ignored:
+                    continue
+                label = am_alphabet.decode_single(am_token)
+                if alphabet.can_encode_single(label):
+                    self._am_to_scorer[am_token] = alphabet.encode_single(label)
+
+    def _remap(self, am_token: int) -> int:
+        return self._am_to_scorer.get(am_token, am_token)
+
+    def _pruned_emissions(self, prob: np.ndarray) -> List[Tuple[int, float]]:
+        """Ignored symbols are dropped; blank goes last so the timestep
+        merge assumption holds (cpp: 'Blank must go last')."""
+        pairs = [
+            (i, float(prob[i]))
+            for i in range(prob.shape[0])
+            if i != self.blank_id and i not in self.ignored
+        ]
+        pairs.append((self.blank_id, float(prob[self.blank_id])))
+        n = prob.shape[0]
+        cutoff_len = n
+        if self.cutoff_prob < 1.0 or self.cutoff_top_n < n:
+            pairs.sort(key=lambda p: -p[1])
+            if self.cutoff_prob < 1.0:
+                cum, cutoff_len = 0.0, 0
+                for _, p in pairs:
+                    cum += p
+                    cutoff_len += 1
+                    if cum >= self.cutoff_prob or cutoff_len >= self.cutoff_top_n:
+                        break
+            pairs = pairs[:cutoff_len]
+        return [(i, math.log(p + _FLT_MIN)) for i, p in pairs]
+
+    def _to_scorer_token(self, am_token: int) -> int:
+        return self._am_to_scorer.get(am_token, am_token)
+
+
+def ctc_beam_search_decoder_for_wav2vec2am(
+    probs: np.ndarray,
+    alphabet: Alphabet,
+    beam_size: int,
+    blank_id: int,
+    am_alphabet: Optional[Alphabet] = None,
+    ignored_symbols: Sequence[int] = (),
+    cutoff_prob: float = 1.0,
+    cutoff_top_n: int = 40,
+    scorer: Optional[ScorerBase] = None,
+    hot_words: Optional[Dict[str, float]] = None,
+    num_results: int = 1,
+) -> List[DecodeResult]:
+    state = Wav2vec2DecoderState(
+        alphabet, beam_size, blank_id, am_alphabet, ignored_symbols,
+        cutoff_prob, cutoff_top_n, scorer, hot_words,
+    )
+    state.next(probs)
+    return state.decode(num_results)

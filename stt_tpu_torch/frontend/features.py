@@ -11,6 +11,11 @@ either): framing is `Tensor.unfold`, the real DFT is two float32 matmuls
 with the window folded into the matrices. On CUDA, `resolve_device` turns
 TF32 off, so these are true float32 products as JAX's precision="highest".
 The constants are computed in float64 numpy and kept as float32.
+
+`spectrogram_numpy`, `mfcc_from_spectrogram_numpy` and
+`audio_to_mfcc_numpy` are copies of stt_tpu's host (numpy) frontend:
+float32 frames through scipy's real FFT, as the one-shot inference entry
+points feature a file.
 """
 
 from __future__ import annotations
@@ -177,3 +182,51 @@ def audio_to_mfcc(
     Batched inputs should be zero-padded on the right; `num_frames` of each
     utterance's sample count gives its valid feature length."""
     return mfcc_from_spectrogram(spectrogram(audio, config), config)
+
+
+@functools.lru_cache(maxsize=8)
+def _frame_index(n_frames: int, window_samples: int, step_samples: int) -> np.ndarray:
+    return (
+        np.arange(n_frames)[:, None] * step_samples
+        + np.arange(window_samples)[None, :]
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _hann(window_samples: int) -> np.ndarray:
+    n = window_samples
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n, dtype=np.float64) / n)).astype(
+        np.float32)
+
+
+def spectrogram_numpy(
+    audio: np.ndarray, config: FeatureConfig = FeatureConfig()
+) -> np.ndarray:
+    """[n_samples] audio -> [n_frames, n_bins] magnitude-squared, float32,
+    on the host."""
+    from scipy import fft
+
+    n_frames = num_frames(len(audio), config.window_samples, config.step_samples)
+    idx = _frame_index(n_frames, config.window_samples, config.step_samples)
+    frames = np.asarray(audio, np.float32)[idx] * _hann(config.window_samples)
+    spec = fft.rfft(frames, n=config.fft_length, axis=-1)
+    power = spec.real.astype(np.float32) ** 2
+    power += spec.imag.astype(np.float32) ** 2
+    return power
+
+
+def mfcc_from_spectrogram_numpy(
+    power_spec: np.ndarray, config: FeatureConfig = FeatureConfig()
+) -> np.ndarray:
+    """[n_frames, n_bins] magnitude-squared -> [n_frames, n_mfcc], float32."""
+    mel_matrix, dct_t = _constants(config)
+    magnitude = np.sqrt(power_spec.astype(np.float32))
+    mel = magnitude @ mel_matrix
+    log_mel = np.log(np.maximum(mel, _FILTERBANK_FLOOR, dtype=np.float32))
+    return log_mel @ dct_t
+
+
+def audio_to_mfcc_numpy(
+    audio: np.ndarray, config: FeatureConfig = FeatureConfig()
+) -> np.ndarray:
+    return mfcc_from_spectrogram_numpy(spectrogram_numpy(audio, config), config)

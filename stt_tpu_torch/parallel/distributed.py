@@ -12,16 +12,22 @@
   the loss's terms and the gradients (`train.step`).
 - host-side statistics (WER counters, dev losses) merge with
   `allreduce_sum_across_hosts`.
+- the model axis's collectives (`parallel.tp`) over a subgroup, as
+  autograd functions: `all_gather` along a dimension, whose backward is a
+  sum-scatter (JAX's transpose of all_gather, psum_scatter), and the tiled
+  `all_to_all`, whose backward is the inverse all_to_all.
 
-Gloo takes CUDA tensors for all-reduce but not for all-gather, so the
-gathers here run on CPU tensors under gloo and on the rank's card under
-NCCL.
+Where the gathers' and the model axis's tensors lie is the backend's
+choice, made in one place (`_collective_device`): on the rank's card under
+NCCL, on the CPU under gloo, through which they are staged explicitly
+(`staged_bytes` counts the bytes copied between the card and the host).
+All-reduces take the tensor where it lies under either backend.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +93,97 @@ def _collective_device() -> torch.device:
     return torch.device("cpu")
 
 
+def _staged(tensor: torch.Tensor) -> torch.Tensor:
+    """The tensor where the backend's collectives take it (see
+    `_collective_device`), counting the bytes that cross to the host."""
+    target = _collective_device()
+    if tensor.device != target and tensor.device.type == "cuda":
+        staged_bytes[0] += tensor.numel() * tensor.element_size()
+    return tensor.to(target).contiguous()
+
+
+def _back(tensor: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if tensor.device != like.device and like.device.type == "cuda":
+        staged_bytes[0] += tensor.numel() * tensor.element_size()
+    return tensor.to(like.device)
+
+
+staged_bytes = [0]  # bytes copied between the card and the host for gloo's collectives
+
+
+def group_size(group=None) -> int:
+    return dist.get_world_size(group) if active() else 1
+
+
+def all_gather_list(tensor: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """Every rank's tensor of the group (all the same shape), in rank order,
+    on the tensor's device."""
+    staged = _staged(tensor)
+    out = [torch.empty_like(staged) for _ in range(group_size(group))]
+    dist.all_gather(out, staged, group=group)
+    return [_back(t, tensor) for t in out]
+
+
+def _gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return torch.cat(all_gather_list(x, group), dim)
+
+
+def _sum_scatter_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of x, cut in group-size pieces along dim: this
+    rank's piece."""
+    pieces = [_staged(p) for p in x.chunk(group_size(group), dim)]
+    out = torch.empty_like(pieces[0])
+    dist.reduce_scatter(out, pieces, group=group)
+    return _back(out, x)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """Piece j of x along split_dim goes to rank j; the pieces received,
+    in rank order, are joined along concat_dim."""
+    k = group_size(group)
+    send = _staged(torch.stack(x.chunk(k, split_dim)))
+    received = torch.empty_like(send)
+    dist.all_to_all_single(received, send, group=group)
+    return torch.cat(_back(received, x).unbind(0), concat_dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_scatter_along(grad.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(grad.contiguous(), concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The group's x joined along dim in rank order (tiled), differentiable:
+    the backward sums the cotangents over the group and gives each rank its
+    piece."""
+    return _AllGather.apply(x, dim, group)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group=None) -> torch.Tensor:
+    """Tiled all_to_all: x cut in group-size pieces along split_dim, piece j
+    to rank j, the received pieces joined along concat_dim in rank order.
+    Differentiable: the backward is the inverse all_to_all."""
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
 def host_batch_bounds(global_batch_size: int) -> Tuple[int, int]:
     """[start, end) rows of the global batch this rank must produce."""
     per_host = global_batch_size // process_count()
@@ -127,12 +224,22 @@ def allreduce_sum_across_hosts(values) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def allreduce_(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum a tensor over the ranks in place, where it lies (gloo takes CUDA
-    tensors for all-reduce); nothing without a process group."""
+def allreduce_(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum a tensor over the ranks (of `group`, else all) in place, where it
+    lies (gloo takes CUDA tensors for all-reduce); nothing without a process
+    group."""
     if active():
-        dist.all_reduce(tensor)
+        dist.all_reduce(tensor, group=group)
     return tensor
+
+
+def broadcast_flag(flag: bool) -> bool:
+    """Rank 0's flag on every rank."""
+    if not active():
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int64, device=_collective_device())
+    dist.broadcast(t, 0)
+    return bool(t.item())
 
 
 def merge_wer_counters(word_errors: float, n_words: int, char_errors: float,

@@ -33,6 +33,15 @@ counterpart of `stt_tpu.train.trainer`, on one device).
   rank holds the same parameters. Rank 0 writes the checkpoints, the
   best-dev bookkeeping, the logs, the scalars and the profile; dev losses
   are computed on the ranks' shares of the dev batches and merged.
+- `--n_model_parallel K` (tensor parallelism): the --num_processes ranks
+  form a (num_processes / K, K) mesh (`parallel.mesh`). The K model ranks
+  of a data index feed the same rows and each holds a shard of the
+  parameters and of Adam's moments; the step is `make_train_step_tp`.
+  Checkpoints hold the full parameters and Adam state, gathered over the
+  model ranks and written by rank 0, so one file loads at any K. Dev
+  epochs run on the gathered model (the inference kernel K1), each rank
+  on its share of the dev batches, so the merged dev loss is one
+  process's.
 
 The step runs on the card unless the caller passes device="cpu".
 """
@@ -57,10 +66,15 @@ from stt_tpu_torch.train.checkpoints import CheckpointManager, load_or_init_grap
 from stt_tpu_torch.train.step import (
     Batch,
     TrainState,
+    create_optimizer,
     create_train_state,
+    gather_model,
+    gather_train_state,
     make_eval_step,
     make_train_step,
     make_train_step_audio,
+    make_train_step_tp,
+    shard_train_state,
 )
 
 METRICS_LAG = 3  # steps between a step's dispatch and the fetch of its metrics
@@ -73,6 +87,12 @@ def set_learning_rate(state: TrainState, lr: float) -> None:
 
 def get_learning_rate(state: TrainState) -> float:
     return float(state.optimizer.param_groups[0]["lr"])
+
+
+def create_optimizer_with_hyperparams(config: SttConfig, params) -> torch.optim.Adam:
+    """Adam over `params` at the config's learning rate, betas and epsilon."""
+    return create_optimizer(params, learning_rate=config.learning_rate, beta1=config.beta1,
+                            beta2=config.beta2, epsilon=config.epsilon)
 
 
 def make_summary_writer(summary_dir: str) -> Optional[Callable[[int, dict], None]]:
@@ -134,8 +154,11 @@ def train(config: SttConfig, device="cuda") -> TrainState:
     alphabet = config.resolve_alphabet()
     model_config = config.model_config(training=True)
     feature_config = config.feature_config
-    # this rank's rows of every global batch (the batch must divide over the ranks)
-    host_rows = make_mesh().rows(config.train_batch_size)
+    # the (data, model) mesh, and this rank's data index's rows of every
+    # global batch (the batch must divide over the data axis)
+    mesh = make_mesh(n_model=config.n_model_parallel)
+    tensor_parallel = mesh.n_model > 1
+    host_rows = mesh.rows(config.train_batch_size)
     state = create_train_state(
         model_config, seed=config.seed, device=device, learning_rate=config.learning_rate,
         beta1=config.beta1, beta2=config.beta2, epsilon=config.epsilon,
@@ -162,7 +185,14 @@ def train(config: SttConfig, device="cuda") -> TrainState:
         log(f"Re-initialized learning rate to {config.learning_rate} "
             "(--force_initialize_learning_rate)")
 
-    if config.device_featurize:
+    if tensor_parallel:
+        state = shard_train_state(state, mesh)
+        # every layout, as stt_tpu's trainer (GSPMD over param_sharding):
+        # a width that does not divide over the model ranks stays replicated
+        train_step = make_train_step_tp(
+            model_config, mesh, feature_config if config.device_featurize else None,
+            replicate_uneven=True)
+    elif config.device_featurize:
         train_step = make_train_step_audio(feature_config)
     else:
         train_step = make_train_step()
@@ -228,7 +258,19 @@ def train(config: SttConfig, device="cuda") -> TrainState:
                 batch = batch._replace(features=features, labels=labels)
             yield batch, ids
 
-    def run_eval_epoch(files: List[str]) -> float:
+    def full_state() -> TrainState:
+        """The whole state: under tensor parallelism gathered over the model
+        ranks (a collective: every rank calls it at the same point)."""
+        return gather_train_state(state, mesh) if tensor_parallel else state
+
+    def save(tag: str, dev_loss=None) -> None:
+        if manager is None:  # the same on every rank
+            return
+        full = full_state()
+        if saver is not None:
+            saver.save(full, tag, dev_loss=dev_loss)
+
+    def run_eval_epoch(files: List[str], model) -> float:
         """The mean finite loss over the files; with several processes each
         rank evaluates every proc_count-th batch and the sums merge."""
         losses: List[float] = []
@@ -236,7 +278,7 @@ def train(config: SttConfig, device="cuda") -> TrainState:
                                                           batch_size=config.dev_batch_size)):
             if index % proc_count != proc_id:
                 continue
-            batch_losses, _ = eval_step(state.model, batch.to(device))
+            batch_losses, _ = eval_step(model, batch.to(device))
             losses.extend(batch_losses.cpu().tolist())
         finite = [l for l in losses if np.isfinite(l)]
         if proc_count > 1:
@@ -290,8 +332,11 @@ def train(config: SttConfig, device="cuda") -> TrainState:
             if profiler is not None and step_in_epoch + 1 >= config.profile_steps:
                 stop_profiler(profiler, device, config.profile_dir)
                 profiler = None
-            if saver is not None and time.time() - last_save > config.checkpoint_secs:
-                saver.save(state, "last")
+            due = saver is not None and time.time() - last_save > config.checkpoint_secs
+            if tensor_parallel and manager is not None:  # the gather needs every rank: rank 0 decides
+                due = distributed.broadcast_flag(due)
+            if due:
+                save("last")
                 last_save = time.time()
         for entry in pending:
             drain_metrics(entry)
@@ -311,14 +356,17 @@ def train(config: SttConfig, device="cuda") -> TrainState:
             })
 
         dev_loss = None
+        eval_model = None
+        if config.dev_files or config.metrics_files:
+            eval_model = gather_model(state, mesh) if tensor_parallel else state.model
         if config.dev_files:
-            dev_loss = run_eval_epoch(config.dev_files)
+            dev_loss = run_eval_epoch(config.dev_files, eval_model)
             msg += f" | dev loss {dev_loss:.4f}"
             if summary_writer is not None:
                 summary_writer(state.step, {"dev/loss": dev_loss})
         # metrics datasets are tracked each epoch but steer nothing
         for metrics_csv in config.metrics_files:
-            m_loss = run_eval_epoch([metrics_csv])
+            m_loss = run_eval_epoch([metrics_csv], eval_model)
             name = os.path.basename(metrics_csv)
             msg += f" | metrics[{name}] loss {m_loss:.4f}"
             if summary_writer is not None:
@@ -331,12 +379,11 @@ def train(config: SttConfig, device="cuda") -> TrainState:
                 epochs_without_improvement = 0
             else:
                 epochs_without_improvement += 1
-            if saver is not None and dev_loss < best_dev_loss:
-                saver.save(state, "best_dev", dev_loss=dev_loss)
+            if dev_loss < best_dev_loss:
+                save("best_dev", dev_loss=dev_loss)
             best_dev_loss = min(best_dev_loss, dev_loss)
-        if saver is not None:
-            saver.save(state, "last")
-            last_save = time.time()
+        save("last")
+        last_save = time.time()
 
         if config.early_stop and epochs_without_improvement >= config.es_epochs:
             log(f"Early stop triggered: dev loss has not improved by more than "
@@ -348,13 +395,17 @@ def train(config: SttConfig, device="cuda") -> TrainState:
                 and epochs_without_improvement % config.plateau_epochs == 0):
             distributed.barrier()  # rank 0's best_dev is written
             try:
-                manager.restore(state, "best_dev")
+                if tensor_parallel:
+                    state = shard_train_state(manager.restore(full_state(), "best_dev"), mesh)
+                else:
+                    manager.restore(state, "best_dev")
             except FileNotFoundError:
                 pass
             new_lr = get_learning_rate(state) * config.plateau_reduction
             set_learning_rate(state, new_lr)
             log(f"Plateau: reloaded best checkpoint, reduced LR to {new_lr}")
 
+    final = full_state()
     if saver is not None:
-        saver.save(state, "last")
-    return state
+        saver.save(final, "last")
+    return final

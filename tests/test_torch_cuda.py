@@ -900,6 +900,41 @@ def test_one_rank_nccl_step_equals_the_step_without_a_group(device):
     assert losses[0] == losses[1]
 
 
+@pytest.mark.parametrize("K,m", [(2, 0), (2, 1), (4, 3)])
+def test_tp_rank_recurrence_on_card_matches_plain(device, K, m):
+    """What one model rank of `parallel.tp.apply_model_tp` runs: K3 and K4
+    at its B/K rows of the all_to_all'd gate projection [T, B/K, 4H],
+    against the W_h gathered that step, forward and backward against the
+    plain versions on the CPU. The next step's W_h differs, and the kernels
+    must use it (the packed copy is made anew at every forward)."""
+    from stt_tpu_torch.ops.lstm_train import _Recurrence
+
+    B, H, T = 16, 256, 30
+    rows = B // K
+    for step in range(2):
+        params, x, seq, _, _ = lstm_case(100 + step, T, B, H, n_in=H)
+        x_proj, _ = project_inputs(params, x, torch.float32)
+        x_proj = x_proj[:, m * rows:(m + 1) * rows].contiguous()
+        w_h = params["kernel"][H:].contiguous()
+        seq_m = seq[m * rows:(m + 1) * rows].contiguous()
+        results = []
+        for dev in (torch.device("cpu"), device):
+            xp = x_proj.detach().to(dev).requires_grad_()
+            wh = w_h.detach().to(dev).requires_grad_()
+            c0 = torch.zeros(rows, H, device=dev)
+            fwd, bwd = lstm_train_fwd.launches, lstm_train_bwd.launches
+            hs, c, h = _Recurrence.apply(xp, wh, c0, c0.clone(), seq_m.to(dev), torch.float32)
+            (hs.square().sum() + c.sum() + 0.5 * h.sum()).backward()
+            torch.cuda.synchronize()
+            launched = (lstm_train_fwd.launches - fwd, lstm_train_bwd.launches - bwd)
+            assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+            results.append([t.detach().cpu().numpy() for t in (hs, c, h, xp.grad, wh.grad)])
+        for got, want in zip(results[1][:3], results[0][:3]):
+            np.testing.assert_allclose(got, want, rtol=0, atol=TOL[torch.float32])
+        for got, want in zip(results[1][3:], results[0][3:]):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
 # --- the native decoder with a scorer, behind the card's model ------------
 
 LM_WORDS = "the of and to in is was he for it with water dark suit greasy wash year all".split()

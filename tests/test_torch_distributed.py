@@ -39,7 +39,7 @@ from stt_tpu.train.step import create_optimizer as jax_create_optimizer
 from stt_tpu_torch.artifact import params_from_numpy
 from stt_tpu_torch.config import SttConfig, maybe_initialize_distributed
 from stt_tpu_torch.models import ModelConfig
-from stt_tpu_torch.parallel import distributed, make_mesh
+from stt_tpu_torch.parallel import Mesh, distributed, make_mesh
 from stt_tpu_torch.train import Batch, create_train_state, make_train_step
 from test_torch_trainer import write_csv
 
@@ -70,8 +70,15 @@ def test_data_mesh_and_local_device():
     mesh = make_mesh()
     assert (mesh.n_data, mesh.rank) == (1, 0) and mesh.rows(16) == (0, 16)
     assert make_mesh(n_data=1).rows(3) == (0, 3)
-    with pytest.raises(NotImplementedError, match="M13, tensor parallelism"):
-        make_mesh(n_model=2)
+    # rank r is (r // n_model, r % n_model), stt_tpu's reshape(n_data,
+    # n_model) order; a data index's model ranks feed the same rows
+    grid = [Mesh(2, 3, r) for r in range(6)]
+    assert [(m.data_index, m.model_index) for m in grid] == \
+        [(d, m) for d in range(2) for m in range(3)]
+    assert [m.rows(8) for m in grid] == [(0, 4)] * 3 + [(4, 8)] * 3
+    assert np.asarray(range(6)).reshape(2, 3)[1, 2] == 5 == grid[5].rank
+    with pytest.raises(ValueError, match="divisible by --n_model_parallel 2"):
+        make_mesh(n_model=2)  # one process holds no model axis of two ranks
     with pytest.raises(ValueError, match="data axis"):
         make_mesh(n_data=2)
     assert distributed.local_device("cpu") == torch.device("cpu")

@@ -55,10 +55,14 @@ def test_every_module_imports_without_jax_or_stt_tpu():
                    "stt_tpu_torch.parallel", "stt_tpu_torch.parallel.distributed",
                    "stt_tpu_torch.parallel.mesh"}
         assert m12_m13 <= set(names), m12_m13 - set(names)
+        m13_m14 = {"stt_tpu_torch.parallel.tp", "stt_tpu_torch.lm_optimizer",
+                   "stt_tpu_torch.training_graph_inference", "stt_tpu_torch.evaluate_flashlight",
+                   "stt_tpu_torch.decode.flashlight", "stt_tpu_torch.evaluate_wav2vec2am"}
+        assert m13_m14 <= set(names), m13_m14 - set(names)
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 72
+    assert int(proc.stdout.strip()) >= 78
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():
@@ -182,6 +186,54 @@ def test_evaluate_export_and_transcribe_default_to_cuda_and_raise_without_it(tmp
                 assert "CUDA is not available" in str(e), e
             else:
                 raise AssertionError("an entry point ran without CUDA")
+    """, CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_m14_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    """The one-shot inference, the LM optimizer, the flashlight evaluation
+    and the wav2vec2 evaluation's batch decode run on the card unless asked
+    for the CPU."""
+    proc = run(f"""
+        import json, os
+        import numpy as np
+        import torch
+        from stt_tpu_torch.config import SttConfig
+        from stt_tpu_torch.data.sources import CSVWriter, Sample
+        from stt_tpu_torch.evaluate_flashlight import evaluate_flashlight, one_shot_infer
+        from stt_tpu_torch.evaluate_wav2vec2am import evaluate_wav2vec2am
+        from stt_tpu_torch.lm_optimizer import compute_lm_optimization
+        from stt_tpu_torch.training_graph_inference import do_single_file_inference
+        assert not torch.cuda.is_available()
+        root = {str(tmp_path)!r}
+        alphabet = os.path.join(root, "alphabet.txt")
+        open(alphabet, "w").write("a\\nb\\n")
+        csv = os.path.join(root, "t.csv")
+        with CSVWriter(csv) as w:
+            w.add(Sample("t0", "ab", _audio=np.zeros(8000, np.float32), _rate=16000))
+        os.makedirs(os.path.join(root, "am", "em"))
+        json.dump({{"alphabet_labels": ["<pad>", "a", "b"], "blank_id": 0}},
+                  open(os.path.join(root, "am", "config.json"), "w"))
+        from stt_tpu_torch.evaluate_wav2vec2am import read_csv_entries
+        stem = os.path.splitext(os.path.basename(read_csv_entries([csv])[0][0]))[0]
+        np.save(os.path.join(root, "am", "em", stem + ".npy"), np.full((5, 3), 1 / 3, np.float32))
+        config = SttConfig(alphabet_config_path=alphabet, n_hidden=8, test_files=[csv],
+                           checkpoint_dir=os.path.join(root, "ckpt"), scorer_path="x.scorer")
+        calls = [lambda: do_single_file_inference(config, "x.wav"),
+                 lambda: compute_lm_optimization(config, n_trials=1),
+                 lambda: evaluate_flashlight(config), lambda: one_shot_infer(config, "x.wav"),
+                 lambda: evaluate_wav2vec2am([csv], os.path.join(root, "am"),
+                                             emissions_dir=os.path.join(root, "am", "em"))]
+        for call in calls:
+            try:
+                call()
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e), e
+            else:
+                raise AssertionError("an entry point ran without CUDA")
+        [r] = evaluate_wav2vec2am([csv], os.path.join(root, "am"),
+                                  emissions_dir=os.path.join(root, "am", "em"), device="cpu")
+        assert r.src == "ab"
     """, CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0, proc.stderr
 

@@ -259,7 +259,6 @@ def test_flags_parse_like_the_jax_package():
 
 @pytest.mark.parametrize("argv,where", [
     (["--export_tflite", "true"], "M15"),
-    (["--n_model_parallel", "2"], "M13, tensor parallelism"),
 ])
 def test_flags_of_unported_parts_raise(argv, where):
     with pytest.raises(NotImplementedError, match=where):
@@ -272,11 +271,12 @@ def test_flags_of_unported_parts_raise(argv, where):
     ["--num_processes", "2"],
     ["--process_id", "0"],
     ["--num_processes", "2", "--process_id", "1", "--coordinator_address", "localhost:1234"],
+    ["--n_model_parallel", "2"],
 ])
 def test_device_augment_and_multi_process_flags_parse_like_the_jax_package(argv):
-    """The flags of on-device augmentation (M12) and of data parallelism
-    across processes (M13) are ported: they parse as stt_tpu parses them,
-    and parsing alone joins no process group."""
+    """The flags of on-device augmentation (M12) and of data and tensor
+    parallelism across processes (M13) are ported: they parse as stt_tpu
+    parses them, and parsing alone joins no process group."""
     import torch.distributed as dist
 
     got, want = parse_flags(argv).to_dict(), jax_parse_flags(argv).to_dict()
