@@ -5,8 +5,9 @@
 
 1. Setup: prints the card's name and power limit, turns TF32 off, builds
    every CUDA kernel of the package from its sources (build/kernels/), one
-   nvcc per source, all at once, and beside them the native CTC decoder
-   with g++ (build/native/).
+   nvcc per source, all at once, and beside them the native CTC decoder,
+   the C API's libstt_tpu_torch.so and stt_client with g++ and gcc
+   (build/native/).
 2. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the shapes of the main path and beyond, and times the kernel,
    the plain version, the bound and, where one exists, the one PyTorch
@@ -154,10 +155,21 @@
    with four trials and the word scorer, `evaluate_flashlight` on the dev
    CSV, and `evaluate_wav2vec2am` on emissions that the port's model writes
    as .npy (K5); each one's wall ms, and no training kernel.
+4i. C API phase (also `--phases capi`): the full-width artifact served
+   through libstt_tpu_torch.so by ctypes in this process (STT_SpeechToText,
+   STT_SpeechToTextWithMetadata, and a 320 ms-chunk stream with the word
+   scorer and HOT_WORDS), each equal to the same request of an in-process
+   `Model` on the card and launching K1, with both wall times; then the
+   stt_client program in a subprocess, one-shot and --stream --scorer, whose
+   transcripts must be the in-process ones, with its wall seconds.
+4j. Compat phase (also `--phases compat`): the committed reference-format
+   .tflite fixtures (f32 and int8, tests/fixtures/) imported by the port's
+   reader and served by `Model(dir)` on the card: logits within
+   COMPAT_LOGITS_TOL of the CPU's, equal transcripts, K1.
 5. Prints one JSON line listing every kernel (launches counted over the
-   serving, training, evaluation, input, pool, augment, parallel, tp and
-   entry phases' runs), the card's name and power limit, and as the last
-   line {"ok": true, "device": {...}}.
+   serving, training, evaluation, input, pool, augment, parallel, tp,
+   entry, capi and compat phases' runs), the card's name and power limit,
+   and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
 and prints no result. --out writes the full record as JSON.
@@ -166,6 +178,7 @@ and prints no result. --out writes the full record as JSON.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import shutil
@@ -218,6 +231,9 @@ INT8_CARD_CPU_TOL, INT8_CARD_CPU_MEAN_TOL, INT8_FLOAT_TOL = 0.2, 2e-2, 0.5
 INT8_OPS_PER_S = 1979e12  # dense int8, H100 SXM
 PROBS_TOL = 1e-4  # card vs CPU probabilities of the full-width model, f32
 LOGITS_TOL = 2e-3  # card vs CPU logits of the full-width model, f32
+# card vs CPU logits of the 64-wide imported .tflite fixtures, f32 sums in
+# another order (measured 1.6e-7 on an H100 80GB HBM3 at 700 W)
+COMPAT_LOGITS_TOL = 1e-4
 LABELS = list(" abcdefghijklmnopqrstuvwxyz'")  # English, 28 labels + blank
 BEAM_WIDTH = 32
 # the native (C++) decoder against the port's Python one on the same inputs:
@@ -3600,18 +3616,268 @@ def entry_phase(device, seed: int, work_dir: str, paths: dict, scorers: dict, ca
     return {"runs": runs, "launches": totals, "gpu": card}
 
 
+CAPI_PIECE_S = 0.32  # the C API stream's chunk, as the serving phase's streams
+
+
+def write_pcm_wav(path: str, pcm: np.ndarray, rate: int) -> None:
+    """16-bit mono WAV of `pcm` as it is, so stt_client reads these samples."""
+    import wave
+
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes(pcm.astype("<i2").tobytes())
+
+
+def same_c_metadata(name: str, got: list, want: list) -> None:
+    """Transcripts, tokens and timesteps equal; confidences within
+    DECODER_CONF_TOL (the C side passes them as doubles, unchanged)."""
+    if [[(t, s) for t, s, _ in c[1]] for c in got] != [[(t, s) for t, s, _ in c[1]] for c in want]:
+        raise AssertionError(f"{name}: C API tokens {got} differ from the in-process {want}")
+    for (conf, _), (want_conf, _) in zip(got, want):
+        if not abs(conf - want_conf) <= DECODER_CONF_TOL:
+            raise AssertionError(f"{name}: confidence {conf} vs the in-process {want_conf}")
+
+
+def capi_phase(device, seed: int, work_dir: str, scorers: dict, card: str) -> dict:
+    """The C API (libstt_tpu_torch.so over serve.cbridge) on the full-width
+    artifact of the serving phase, on the card:
+    - through ctypes in this process: STT_SpeechToText and
+      STT_SpeechToTextWithMetadata of a 3.3 s utterance as 16-bit PCM, and a
+      stream fed 320 ms chunks with an intermediate decode after each and a
+      final decode with metadata, with the word scorer and HOT_WORDS; each
+      against the same request of an in-process `Model` on the card
+      (transcripts, tokens and timesteps equal, confidences within
+      DECODER_CONF_TOL), each run twice on each side in turns (C, in
+      process, in process, C) and counted: K1 and no other kernel, the
+      stream at least one K1 launch a model chunk (16 frames), and as many
+      as the in-process stream;
+    - the stt_client program in a subprocess (PYTHONPATH = the root), one-shot
+      and --stream with --scorer: stdout's transcript equals the in-process
+      one (the client streams 0.5 s chunks, without hot words).
+    Records each request's wall ms beside the in-process one, and the
+    client's wall seconds with its interpreter's boot."""
+    from stt_tpu_torch.serve import Model, capi, cbridge
+
+    t0 = time.time()
+    config, fc, alphabet, n_params = smoke_artifact(work_dir, seed)
+    rate = fc.sample_rate
+    audios = serving_inputs(seed, fc, config.n_input)[0]
+    pcms = [np.clip(a * 32768, -32768, 32767).astype(np.int16) for a in audios[1:]]
+    floats = [p.astype(np.float32) / 32768.0 for p in pcms]  # what cbridge hands Model
+    lib = capi.load()
+    cbridge.set_device("cuda")
+    handle = ctypes.c_void_p()
+    if lib.STT_CreateModel(work_dir.encode(), ctypes.byref(handle)) != 0:
+        raise AssertionError("STT_CreateModel failed on the full-width artifact")
+    model = Model(work_dir)
+    print(f"capi: {n_params} params; library built and loaded, model created by the C API and "
+          f"in process in {time.time() - t0:.1f} s", flush=True)
+    if [m.device.type for m in cbridge._MODELS.values()] != ["cuda"]:
+        raise AssertionError("the C API's model is not on the card")
+    requests, totals = [], {}
+
+    def in_turns(name: str, c_fn, in_fn, audio_s: float) -> tuple:
+        """The C API's request and the in-process one in turns (C, in
+        process, in process, C), each counted; each side must give the same
+        result and K1 launches both times. Returns (C result, in-process
+        result, C record, in-process record)."""
+        results, recs = {"capi": [], "in": []}, {"capi": [], "in": []}
+        for side in ("capi", "in", "in", "capi"):
+            result, ms, launches = run_counted(f"capi: {name} ({side})",
+                                               c_fn if side == "capi" else in_fn, ("k1",))
+            for key, n in launches.items():
+                totals[key] = totals.get(key, 0) + n
+            results[side].append(result)
+            recs[side].append((ms, launches["k1"]))
+        for side in recs:
+            if results[side][0] != results[side][1] or recs[side][0][1] != recs[side][1][1]:
+                raise AssertionError(f"{name}: two {side} runs differ: {results[side]}, {recs[side]}")
+        rec = {side: {"ms": [ms for ms, _ in recs[side]], "rtf": min(ms for ms, _ in recs[side])
+                      / 1e3 / audio_s, "k1_launches": recs[side][0][1]} for side in recs}
+        return results["capi"][0], results["in"][0], rec["capi"], rec["in"]
+
+    def record(name: str, audio_s: float, c_side: dict, in_process: dict, **extra) -> None:
+        rec = {"request": name, "audio_s": audio_s, "capi": c_side, "in_process": in_process,
+               "gpu": card, **extra}
+        print("capi", json.dumps(rec), flush=True)
+        requests.append(rec)
+
+    lib.STT_SpeechToText(handle, capi.pcm_pointer(pcms[0][:rate // 2]), rate // 2)  # warm-up
+    model.stt(floats[0][:rate // 2])
+    # ---- one-shot and metadata, no scorer ------------------------------------
+    pcm, audio_s = pcms[0], len(pcms[0]) / rate
+    text, want, c_rec, in_rec = in_turns("STT_SpeechToText", lambda: capi.take_string(
+        lib, lib.STT_SpeechToText(handle, capi.pcm_pointer(pcm), len(pcm))),
+        lambda: model.stt(floats[0]), audio_s)
+    if text != want:
+        raise AssertionError(f"STT_SpeechToText gave {text!r}, Model.stt {want!r}")
+    record("STT_SpeechToText", audio_s, c_rec, in_rec, transcript=text)
+    got, want, c_rec, in_rec = in_turns("STT_SpeechToTextWithMetadata", lambda: capi.take_metadata(
+        lib, lib.STT_SpeechToTextWithMetadata(handle, capi.pcm_pointer(pcm), len(pcm), 3)),
+        lambda: cbridge._metadata_tuples(model.stt_with_metadata(floats[0], 3)), audio_s)
+    same_c_metadata("STT_SpeechToTextWithMetadata", got, want)
+    if "".join(t for t, _, _ in got[0][1]) != text:
+        raise AssertionError("the best candidate's tokens do not spell STT_SpeechToText's text")
+    record("STT_SpeechToTextWithMetadata[3]", audio_s, c_rec, in_rec, candidates=len(got))
+
+    # ---- a stream with the scorer and hot words ------------------------------
+    scorer = scorers["alphabet"]["path"]
+    if lib.STT_EnableExternalScorer(handle, scorer.encode()) != 0:
+        raise AssertionError("STT_EnableExternalScorer failed")
+    model.enable_external_scorer(scorer)
+    for word, boost in HOT_WORDS.items():
+        if lib.STT_AddHotWord(handle, word.encode(), boost) != 0:
+            raise AssertionError(f"STT_AddHotWord({word}) failed")
+        model.add_hot_word(word, boost)
+    piece = int(CAPI_PIECE_S * rate)
+    pcm, audio_s = pcms[1], len(pcms[1]) / rate
+
+    def c_stream():
+        stream = ctypes.c_void_p()
+        if lib.STT_CreateStream(handle, ctypes.byref(stream)) != 0:
+            raise AssertionError("STT_CreateStream failed")
+        partial = []
+        for off in range(0, len(pcm), piece):
+            chunk = np.ascontiguousarray(pcm[off:off + piece])
+            lib.STT_FeedAudioContent(stream, capi.pcm_pointer(chunk), len(chunk))
+            partial.append(capi.take_string(lib, lib.STT_IntermediateDecode(stream)))
+        return partial, capi.take_metadata(lib, lib.STT_FinishStreamWithMetadata(stream, 3))
+
+    def in_process_stream():
+        stream = model.create_stream()
+        partial = []
+        for off in range(0, len(pcm), piece):
+            stream.feed_audio_content(floats[1][off:off + piece])
+            partial.append(stream.intermediate_decode())
+        return partial, cbridge._metadata_tuples(stream.finish_stream_with_metadata(3))
+
+    (partial, final), (want_partial, want_final), c_rec, in_rec = in_turns(
+        "stream", c_stream, in_process_stream, audio_s)
+    if partial != want_partial:
+        raise AssertionError(f"C API intermediate decodes {partial} differ from {want_partial}")
+    same_c_metadata("C API stream", final, want_final)
+    frames = (len(pcm) - fc.window_samples) // fc.step_samples + 1
+    if c_rec["k1_launches"] != in_rec["k1_launches"] or c_rec["k1_launches"] < frames // 16:
+        raise AssertionError(f"C API stream launched K1 {c_rec['k1_launches']} times, the "
+                             f"in-process one {in_rec['k1_launches']}, over {frames} frames")
+    if cbridge._STREAMS:
+        raise AssertionError(f"finished streams left in the bridge's table: {cbridge._STREAMS}")
+    final_text = "".join(t for t, _, _ in final[0][1])
+    record(f"stream[{int(CAPI_PIECE_S * 1e3)}ms, scorer + hot words]", audio_s, c_rec, in_rec,
+           chunks=len(partial), frames=frames, transcript=final_text)
+    lib.STT_FreeModel(handle)
+    if cbridge._MODELS:
+        raise AssertionError("STT_FreeModel left the model in the bridge's table")
+
+    # ---- stt_client in a subprocess: one-shot, and --stream with the scorer -
+    client = capi.client()
+    wav = os.path.join(work_dir, "capi.wav")
+    write_pcm_wav(wav, pcms[1], rate)
+    plain = Model(work_dir)
+    client_piece = rate // 2  # stt_client's stream chunk
+    scored = Model(work_dir)
+    scored.enable_external_scorer(scorer)
+    stream = scored.create_stream()
+    for off in range(0, len(pcms[1]), client_piece):
+        stream.feed_audio_content(floats[1][off:off + client_piece])
+        stream.intermediate_decode()
+    expected = {"one-shot": plain.stt(floats[1]), "--stream --scorer": stream.finish_stream()}
+    clients = []
+    for mode, flags in (("one-shot", []), ("--stream --scorer", ["--stream", "--scorer", scorer])):
+        start = time.perf_counter()
+        proc = subprocess.run([str(client), "--model", work_dir, "--audio", wav, *flags],
+                              capture_output=True, text=True, timeout=300,
+                              env={**os.environ, "PYTHONPATH": ROOT})
+        wall_s = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"stt_client {mode} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        rec = {"client": mode, "wall_s": wall_s, "transcript": proc.stdout.strip(),
+               "expected": expected[mode], "gpu": card}
+        print("capi", json.dumps(rec), flush=True)
+        if rec["transcript"] != expected[mode]:
+            raise AssertionError(f"stt_client {mode} printed {rec['transcript']!r}, "
+                                 f"in process {expected[mode]!r}")
+        clients.append(rec)
+    return {"requests": requests, "clients": clients, "launches": totals, "gpu": card}
+
+
+TFLITE_FIXTURES = {kind: os.path.join(ROOT, "tests", "fixtures", f"reference_{kind}.tflite")
+                   for kind in ("f32", "int8")}  # written by tests/torch_tflite_fixture.py
+
+
+def compat_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """The committed reference-format .tflite fixtures (f32 and int8
+    dynamic-range, 64 wide; written by the port's exporter, so that a
+    machine without TensorFlow serves them) imported by the port's reader, saved as
+    artifacts and served by `Model(dir)` on the card: logits of a seeded
+    batch within COMPAT_LOGITS_TOL of `Model(dir, device="cpu")`'s, and the
+    transcripts of three utterances equal; each request launches K1 and no
+    other kernel."""
+    from stt_tpu_torch.artifact import save_tflite_as_artifact
+    from stt_tpu_torch.frontend import audio_to_mfcc
+    from stt_tpu_torch.serve import Model
+
+    rng = np.random.RandomState(seed + 7)
+    runs, totals = [], {}
+    for kind, fixture in TFLITE_FIXTURES.items():
+        start = time.perf_counter()
+        path, geometry = save_tflite_as_artifact(fixture, os.path.join(work_dir, kind))
+        import_ms = (time.perf_counter() - start) * 1e3
+        gpu, cpu = Model(path), Model(path, device="cpu")
+        assert gpu.device.type == "cuda"
+        fc = gpu.feature_config
+        audios = [utterance(s, fc.sample_rate, rng) for s in (1.5, 2.5, 3.5)]
+        feats = [audio_to_mfcc(torch.from_numpy(a), fc).numpy() for a in audios]
+        lengths = np.array([len(f) for f in feats], np.int32)
+        padded = np.zeros((len(feats), lengths.max(), geometry["n_input"]), np.float32)
+        for i, f in enumerate(feats):
+            padded[i, :len(f)] = f
+        gpu.stt(audios[0])  # warm-up
+        texts, ms, launches = run_counted(f"compat {kind}: stt", lambda: [gpu.stt(a) for a in audios],
+                                          ("k1",))
+        logits, logits_ms, logits_launches = run_counted(
+            f"compat {kind}: infer_logits", lambda: gpu.infer_logits(padded, lengths), ("k1",))
+        want = cpu.infer_logits(padded, lengths)
+        err = 0.0
+        for i, n in enumerate(lengths):
+            err = max(err, float((logits[i, :n].cpu() - want[i, :n]).abs().max()))
+        want_texts = [cpu.stt(a) for a in audios]
+        for key in launches:
+            totals[key] = totals.get(key, 0) + launches[key] + logits_launches[key]
+        rec = {"fixture": os.path.relpath(fixture, ROOT), "bytes": os.path.getsize(fixture),
+               "geometry": geometry, "import_ms": import_ms, "stt_ms": ms, "infer_logits_ms": logits_ms,
+               "k1_launches": launches["k1"] + logits_launches["k1"], "logits_max_abs_err": err,
+               "transcripts": texts, "gpu": card}
+        print("compat", json.dumps(rec), flush=True)
+        if not err <= COMPAT_LOGITS_TOL:
+            raise AssertionError(f"compat {kind}: card logits {err} from the CPU's "
+                                 f"(tol {COMPAT_LOGITS_TOL})")
+        if texts != want_texts:
+            raise AssertionError(f"compat {kind}: card transcripts {texts}, CPU {want_texts}")
+        runs.append(rec)
+    return {"runs": runs, "launches": totals, "gpu": card}
+
+
 def build_native_decoder(out: dict) -> None:
-    """Build (g++) and load the port's native CTC decoder; records the
-    seconds it took and the library's path in `out`, or the error."""
+    """Build (g++) and load the port's native CTC decoder, then build (g++,
+    gcc) the C API's library and stt_client; records the seconds each took
+    and their paths in `out`, or the error."""
     from stt_tpu_torch.decode import native
+    from stt_tpu_torch.serve import capi
 
     start = time.time()
     try:
         native.library()
+        out.update(s=time.time() - start, library=os.path.relpath(native.LIBRARY, ROOT))
+        start = time.time()
+        capi.client()
     except RuntimeError as e:
         out["error"] = str(e)
         return
-    out.update(s=time.time() - start, library=os.path.relpath(native.LIBRARY, ROOT))
+    out.update(capi_s=time.time() - start, capi=[os.path.relpath(p, ROOT)
+                                                  for p in (capi.LIBRARY, capi.CLIENT)])
 
 
 def main() -> int:
@@ -3623,7 +3889,7 @@ def main() -> int:
                              "its source")
     parser.add_argument("--phases", default="",
                         help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation, "
-                             "input, pool, augment, parallel, tp, entry) to run alone "
+                             "input, pool, augment, parallel, tp, entry, capi, compat) to run alone "
                              "(evaluation and entry train their checkpoint first), for work on "
                              "a kernel, the host decoder or a module: prints their records and "
                              "no result line")
@@ -3664,7 +3930,8 @@ def main() -> int:
     if "error" in native_build:
         raise RuntimeError(native_build["error"])
     print(f"build: {time.time() - t0:.1f} s (native decoder {native_build['s']:.1f} s, "
-          f"{native_build['library']})", flush=True)
+          f"{native_build['library']}; C API {native_build['capi_s']:.1f} s, "
+          f"{', '.join(native_build['capi'])})", flush=True)
     work_dir = os.path.join(ROOT, "build", "chip_smoke")
 
     if args.phases:
@@ -3684,8 +3951,12 @@ def main() -> int:
                 phase(device, args.seed, os.path.join(work_dir, "train"), training["paths"],
                       scorers, card)
                 continue
+            if name == "capi":
+                capi_phase(device, args.seed, os.path.join(work_dir, "capi"),
+                           build_scorers(os.path.join(work_dir, "lm"), args.seed), card)
+                continue
             modules = {"pool": pool_phase, "augment": augment_phase, "parallel": parallel_phase,
-                       "tp": tp_phase}
+                       "tp": tp_phase, "compat": compat_phase}
             if name in modules:
                 modules[name](device, args.seed, os.path.join(work_dir, name), card)
                 continue
@@ -3716,6 +3987,8 @@ def main() -> int:
     tp = tp_phase(device, args.seed, os.path.join(work_dir, "tp"), card)
     entry = entry_phase(device, args.seed, os.path.join(work_dir, "train"), training["paths"],
                         scorers, card)
+    capi = capi_phase(device, args.seed, os.path.join(work_dir, "capi"), scorers, card)
+    compat = compat_phase(device, args.seed, os.path.join(work_dir, "compat"), card)
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
     main_shape = next(r for r in k1 if (r["dtype"], r["B"], r["T"]) == ("float32", 1, 16))
@@ -3727,7 +4000,8 @@ def main() -> int:
         "launches": (sum(r["k1_launches"] for r in serving["requests"])
                      + training["launches"]["k1"] + evaluation["launches"]["k1"]
                      + pool["launches"]["k1"] + parallel["launches"]["k1"] + one_rank["k1"]
-                     + tp["launches"]["k1"] + entry["launches"]["k1"]),
+                     + tp["launches"]["k1"] + entry["launches"]["k1"] + capi["launches"]["k1"]
+                     + compat["launches"]["k1"]),
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -3788,7 +4062,7 @@ def main() -> int:
                        "serving": serving, "decoder": decoder, "training": training,
                        "evaluation": evaluation, "input": inputs, "pool": pool,
                        "augment": augment, "parallel": parallel, "tp": tp, "entry": entry,
-                       "kernels": kernels},
+                       "capi": capi, "compat": compat, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {card}")

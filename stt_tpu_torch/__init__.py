@@ -25,10 +25,15 @@ Package layout:
                              .scorer packages, vocabulary tries, emission
                              pruning, the beam search on the card
   stt_tpu_torch.lm         - KenLM binary reader and writer, ARPA models
-  stt_tpu_torch.native     - the native decoder's C++ source
-  stt_tpu_torch.tools      - generate_scorer_package
+  stt_tpu_torch.native     - the native decoder's C++ source, and the C
+                             API's (stt_tpu.h, stt_c_api.cpp, stt_client.c)
+  stt_tpu_torch.tools      - generate_scorer_package, generate_lm and the
+                             other LM and data tools, downloader
   stt_tpu_torch.stream     - stateful streaming inference
-  stt_tpu_torch.serve      - user-facing Model/Stream API
+  stt_tpu_torch.serve      - user-facing Model/Stream API, the stream pool,
+                             and the C API's bridge (cbridge) and build (capi)
+  stt_tpu_torch.compat     - reference .tflite and TF checkpoint interop
+  stt_tpu_torch.io         - remote paths (gs://, hdfs://, mem://)
   stt_tpu_torch.train      - train/eval steps, checkpoints, the trainer
   stt_tpu_torch.client     - `stt`-style command line client
   stt_tpu_torch.evaluate   - test-set WER/CER of a checkpoint (with

@@ -22,6 +22,7 @@ import torch
 
 from stt_tpu_torch import GRAPH_VERSION, __version__
 from stt_tpu_torch.alphabet import Alphabet, UTF8Alphabet
+from stt_tpu_torch.compat.tflite import read_reference_tflite
 from stt_tpu_torch.frontend import FeatureConfig
 from stt_tpu_torch.models import DeepSpeech, ModelConfig
 
@@ -76,6 +77,13 @@ def params_from_numpy(
             flat[f"{layer}/{leaf}"] = torch.tensor(np.asarray(value, np.float32))
     model.load_state_dict(flat)
     return model
+
+
+def params_to_numpy(model: DeepSpeech) -> Dict:
+    """The inverse of `params_from_numpy`: `model`'s parameters as the JAX
+    package's tree, {"layer_1": {"w": array, "b": array}, ..., "lstm":
+    {"kernel": array, "bias": array}}, float32 numpy arrays on the host."""
+    return _unflatten({k: v.detach().cpu().numpy() for k, v in model.state_dict().items()})
 
 
 def qparams_from_numpy(qparams: Dict, device="cpu") -> Dict:
@@ -176,6 +184,23 @@ def save_artifact(
         else:
             f.write(alphabet.serialize_text())
     return out_dir
+
+
+def save_tflite_as_artifact(tflite_path: str, out_dir: str) -> Tuple[str, Dict]:
+    """A reference `.tflite`, imported by `compat.tflite.read_reference_tflite`
+    (int8 weights dequantized), saved as an artifact in `out_dir` that
+    `serve.Model` loads: (the artifact's path, the import's geometry)."""
+    params, meta, geometry = read_reference_tflite(tflite_path)
+    config = ModelConfig(n_input=geometry["n_input"], n_context=geometry["n_context"],
+                         n_hidden=geometry["n_hidden"], n_cell_dim=geometry["n_cell_dim"],
+                         n_out=geometry["n_out"], dropout_rates=(0.0,) * 6)
+    fc = FeatureConfig.from_ms(meta["sample_rate"], meta["feature_win_len"],
+                               meta["feature_win_step"], n_mfcc=geometry["n_input"])
+    alphabet = Alphabet.deserialize(meta["alphabet_serialized"])
+    path = save_artifact(out_dir, params_from_numpy(params, config),
+                         build_metadata(config, fc, alphabet, beam_width=meta["beam_width"]),
+                         alphabet)
+    return path, geometry
 
 
 def package_zip(artifact_dir: str, zip_path: Optional[str] = None) -> str:

@@ -2,9 +2,9 @@
 geometry (the counterpart of `stt_tpu.config`, with the same flag names
 and defaults, so a run script written for one package runs the other).
 
-Flags of parts that are not ported yet raise NotImplementedError, naming
-their ROADMAP.md slice, when they are set away from their defaults (see
-`NOT_PORTED`: --export_tflite). --num_processes, --process_id and
+Flags of parts that are not ported yet would raise NotImplementedError,
+naming their ROADMAP.md slice, when set away from their defaults
+(`NOT_PORTED`; empty: every flag is ported). --num_processes, --process_id and
 --coordinator_address run data parallelism across processes
 (`maybe_initialize_distributed`); --n_model_parallel K lays the ranks out on
 a (num_processes / K, K) mesh and trains tensor-parallel.
@@ -27,9 +27,7 @@ from stt_tpu_torch.frontend import FeatureConfig
 from stt_tpu_torch.models import ModelConfig
 
 # flag -> (its default, the ROADMAP.md slice that ports it)
-NOT_PORTED = {
-    "export_tflite": (False, "M15, compat"),
-}
+NOT_PORTED: dict = {}
 DEVICE_DECODE_MODES = ("auto", "full", "prune", "off")  # stt_tpu's; auto = prune
 
 
@@ -127,9 +125,11 @@ class SttConfig:
     export_model_version: str = "0.0.1"
     export_license: str = ""
     export_language: str = ""
+    # also write a reference-format .tflite beside the artifact
+    # (compat.tflite_export; needs TensorFlow)
     export_tflite: bool = False
     export_file_name: str = "output_graph"
-    n_steps: int = 16
+    n_steps: int = 16  # the .tflite graph's chunk length in timesteps
 
     # -- distribution ------------------------------------------------------
     coordinator_address: str = ""

@@ -6,8 +6,10 @@ The C++ decoder has the semantics of the Python `DecoderState` in
 beam.py (C++ beam bookkeeping, and its own KenLM and ConstFst readers for
 .scorer packages), ~100x faster. It is host code: g++ builds it at first
 use into `build/native/libstt_decoder.so` at the root of the checkout,
-and again whenever the source is newer than the library. ctypes releases
-the GIL around each call, so threads decode utterances concurrently.
+and again whenever the source is newer than the library or the command
+differs from the one that built it (`native_build.build_if_stale`).
+ctypes releases the GIL around each call, so threads decode utterances
+concurrently.
 
 There is no fallback: when the library cannot be built or loaded, every
 call that needs it raises RuntimeError with the compiler's message.
@@ -18,9 +20,7 @@ to the Python decoder.
 from __future__ import annotations
 
 import ctypes
-import os
 import struct
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from stt_tpu_torch.decode.beam import DecodeResult
+from stt_tpu_torch.native_build import build_if_stale
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "ctc_decoder.cpp"
 LIBRARY = Path(__file__).resolve().parents[2] / "build" / "native" / "libstt_decoder.so"
@@ -37,31 +38,6 @@ MAX_TOKENS = 65536  # decode()'s output buffer, tokens over all results
 _lock = threading.Lock()
 # (source, library) -> the loaded library, or why it could not be built
 _loaded: Dict[Tuple[str, str], Union[ctypes.CDLL, str]] = {}
-
-
-def _build(source: Path, library: Path) -> None:
-    """Compile `source` into `library` unless the library is newer. g++
-    writes a temporary file beside it that is renamed into place, so a
-    process building at the same moment never loads a half-written one."""
-    if not source.is_file():
-        raise RuntimeError(f"native decoder source missing: {source}")
-    if library.is_file() and library.stat().st_mtime >= source.stat().st_mtime:
-        return
-    library.parent.mkdir(parents=True, exist_ok=True)
-    tmp = library.with_name(f"{library.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    try:
-        result = subprocess.run(
-            ["g++", *CXX_FLAGS, str(source), "-o", str(tmp)],
-            capture_output=True, text=True, timeout=300,
-        )
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"cannot build the native decoder from {source}: {e}") from e
-    if result.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"g++ failed to build the native decoder from {source}:\n{result.stderr}"
-        )
-    os.replace(tmp, library)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -95,7 +71,8 @@ def library() -> ctypes.CDLL:
         lib = _loaded.get(key)
         if lib is None:
             try:
-                _build(SOURCE, LIBRARY)
+                build_if_stale(["g++", *CXX_FLAGS, str(SOURCE)], [SOURCE], LIBRARY,
+                               "the native decoder")
                 lib = _bind(ctypes.CDLL(str(LIBRARY)))
             except (RuntimeError, OSError) as e:
                 lib = str(e)

@@ -5,8 +5,10 @@ The artifact is stt_tpu's: weights.npz + metadata.json + alphabet.txt
 (`stt_tpu_torch.artifact`), with MODEL_CARD.md beside them, byte-equal to
 what stt_tpu writes for the same weights; `--export_zip` packs it into one
 .sttpkg file and `--export_quantize` stores int8 weights. Either package's
-`Model` loads it. `--export_tflite` is not ported (ROADMAP.md, M15) and
-the config refuses it.
+`Model` loads it. `--export_tflite` also writes the reference-format
+output_graph.tflite beside it (`stt_tpu_torch.compat.tflite_export`; int8
+dynamic-range with `--export_quantize`), which needs TensorFlow: without
+it the export raises TensorFlow's ImportError.
 
 Run: python -m stt_tpu_torch.export --checkpoint_dir ... --export_dir ...
      [--device cpu]
@@ -18,7 +20,7 @@ import argparse
 import os
 import sys
 
-from stt_tpu_torch.artifact import build_metadata, package_zip, save_artifact
+from stt_tpu_torch.artifact import build_metadata, package_zip, params_to_numpy, save_artifact
 from stt_tpu_torch.config import SttConfig, initialize_globals_from_cli, log_info
 from stt_tpu_torch.device import resolve_device
 from stt_tpu_torch.train.checkpoints import CheckpointManager, load_graph_for_evaluation
@@ -53,6 +55,26 @@ def export(config: SttConfig, device="cuda") -> str:
     )
     write_model_card(config, metadata, out)
     log_info(f"Exported model artifact to {out}")
+    if config.export_tflite:
+        from stt_tpu_torch.compat.tflite_export import export_reference_tflite
+
+        tflite_path = os.path.join(
+            out, (config.export_file_name or "output_graph") + ".tflite"
+        )
+        export_reference_tflite(
+            params_to_numpy(state.model), alphabet, tflite_path,
+            n_steps=config.n_steps,
+            sample_rate=config.feature_config.sample_rate,
+            feature_win_len_ms=config.feature_win_len,
+            feature_win_step_ms=config.feature_win_step,
+            export_beam_width=config.export_beam_width,
+            language=config.export_language,
+            quantize=config.export_quantize,
+        )
+        log_info(
+            f"Exported reference-format TFLite artifact to {tflite_path} "
+            "(loadable by the reference C++ runtime)"
+        )
     if config.export_zip:
         zip_path = package_zip(out)
         log_info(f"Packaged {zip_path}")

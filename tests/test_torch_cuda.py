@@ -27,6 +27,10 @@ bf16 casts, so, as in tests/test_torch_lstm_train.py, by relative norm
 (2e-3) and largest difference (2^-7 of the largest value).
 """
 
+import ctypes
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +41,7 @@ from stt_tpu_torch.ops import lstm_recurrence, lstm_train, lstm_train_bwd, lstm_
 from stt_tpu_torch.ops.lstm_train import train_backward, train_forward
 
 pytestmark = pytest.mark.cuda
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-4}
 
 
@@ -1126,3 +1131,114 @@ def test_transcribe_on_card_matches_cpu(device, tmp_path, quantized):
         assert [(s["start"], s["end"]) for s in got] == [(s["start"], s["end"]) for s in want]
     else:
         assert got == want
+
+
+# --- the C API and the imported reference .tflite on the card -------------
+
+CAPI_HOT_WORDS = {"water": 2.0, "the": -0.5, "year": 1.0}
+
+
+def capi_setup(tmp_path):
+    """A 64-wide model with peaky emissions (m9_setup's), a word scorer
+    built by the port's tools, and a 2.5 s utterance as 16-bit PCM."""
+    from stt_tpu_torch.lm.arpa import estimate_kneser_ney, write_arpa
+    from stt_tpu_torch.tools.generate_scorer_package import create_package
+
+    _, path, alphabet_path, _ = m9_setup(tmp_path)
+    rs = np.random.RandomState(5)
+    sentences = [list(rs.choice(LM_WORDS, size=rs.randint(3, 9))) for _ in range(300)]
+    (tmp_path / "vocab.txt").write_text("\n".join(sorted(set(LM_WORDS))) + "\n")
+    write_arpa(estimate_kneser_ney(sentences), str(tmp_path / "lm.arpa"))
+    scorer = create_package(alphabet_path, str(tmp_path / "lm.arpa"), str(tmp_path / "vocab.txt"),
+                            str(tmp_path / "lm.scorer"), 0.93, 1.18)
+    pcm = (rs.uniform(-0.3, 0.3, 40000) * 32767).astype(np.int16)
+    return path, scorer, pcm
+
+
+def test_c_api_on_card_equals_model(device, tmp_path):
+    """Through ctypes in this process, the C API serves on the card (its
+    default): one-shot with metadata, then a 320 ms-chunk stream with a
+    scorer and hot words, each equal to `Model(path)`'s on the card and
+    launching K1."""
+    from stt_tpu_torch.serve import Model, capi, cbridge
+
+    path, scorer, pcm = capi_setup(tmp_path)
+    audio = pcm.astype(np.float32) / 32768.0
+    lib = capi.load()
+    handle = ctypes.c_void_p()
+    assert lib.STT_CreateModel(path.encode(), ctypes.byref(handle)) == 0
+    assert [m.device.type for m in cbridge._MODELS.values()] == ["cuda"]
+    model = Model(path)
+    before = lstm_recurrence.launches
+    text = capi.take_string(lib, lib.STT_SpeechToText(handle, capi.pcm_pointer(pcm), len(pcm)))
+    assert lstm_recurrence.launches > before
+    assert text and text == model.stt(audio)
+    meta = capi.take_metadata(lib, lib.STT_SpeechToTextWithMetadata(
+        handle, capi.pcm_pointer(pcm), len(pcm), 2))
+    want = model.stt_with_metadata(audio, 2).transcripts
+    assert [[(t, s) for t, s, _ in c[1]] for c in meta] == \
+        [[(k.text, k.timestep) for k in c.tokens] for c in want]
+    assert all(abs(c[0] - w.confidence) <= 1e-6 for c, w in zip(meta, want))
+    assert lib.STT_EnableExternalScorer(handle, scorer.encode()) == 0
+    model.enable_external_scorer(scorer)
+    for word, boost in CAPI_HOT_WORDS.items():
+        assert lib.STT_AddHotWord(handle, word.encode(), boost) == 0
+        model.add_hot_word(word, boost)
+    stream, ours = ctypes.c_void_p(), model.create_stream()
+    assert lib.STT_CreateStream(handle, ctypes.byref(stream)) == 0
+    before = lstm_recurrence.launches
+    for off in range(0, len(pcm), 5120):
+        chunk = np.ascontiguousarray(pcm[off:off + 5120])
+        lib.STT_FeedAudioContent(stream, capi.pcm_pointer(chunk), len(chunk))
+        ours.feed_audio_content(audio[off:off + 5120])
+        assert capi.take_string(lib, lib.STT_IntermediateDecode(stream)) == \
+            ours.intermediate_decode()
+    assert capi.take_string(lib, lib.STT_FinishStream(stream)) == ours.finish_stream()
+    assert lstm_recurrence.launches - before >= 2 * (len(pcm) // 5120)  # both streams
+    assert not cbridge._STREAMS
+    lib.STT_FreeModel(handle)
+
+
+@pytest.mark.parametrize("mode", [[], ["--stream"]], ids=["one_shot", "stream"])
+def test_stt_client_on_card_prints_models_transcript(device, tmp_path, mode):
+    import subprocess
+    import wave
+
+    from stt_tpu_torch.serve import Model, capi
+
+    path, _, pcm = capi_setup(tmp_path)
+    wav = str(tmp_path / "a.wav")
+    with wave.open(wav, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes(pcm.tobytes())
+    proc = subprocess.run([str(capi.client()), "--model", path, "--audio", wav, *mode],
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == Model(path).stt(pcm.astype(np.float32) / 32768.0)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_imported_tflite_fixture_served_on_card(device, tmp_path, kind):
+    """The committed reference .tflite (tests/fixtures/), imported by the
+    port's reader and saved as an artifact, served on the card: K1, logits
+    of the CPU's within 1e-4 (64 wide), the CPU's transcript."""
+    from stt_tpu_torch.artifact import save_tflite_as_artifact
+    from stt_tpu_torch.frontend import FeatureConfig, audio_to_mfcc
+    from stt_tpu_torch.serve import Model
+
+    import torch_tflite_fixture as fixture
+
+    path, geometry = save_tflite_as_artifact(fixture.PATHS[kind], str(tmp_path / kind))
+    assert geometry["n_hidden"] == 64
+    gpu, cpu = Model(path), Model(path, device="cpu")
+    audio = np.random.RandomState(6).uniform(-0.3, 0.3, 30000).astype(np.float32)
+    feats = audio_to_mfcc(torch.from_numpy(audio), FeatureConfig()).numpy()[None]
+    before = lstm_recurrence.launches
+    logits = gpu.infer_logits(feats, [feats.shape[1]])
+    assert lstm_recurrence.launches > before
+    torch.testing.assert_close(logits.cpu(), cpu.infer_logits(feats, [feats.shape[1]]),
+                               rtol=0, atol=1e-4)
+    assert gpu.stt(audio) == cpu.stt(audio)

@@ -8,8 +8,9 @@ package's `export(config)` with the same flags, then
   metadata.json and alphabet.txt inside;
 - the port's export loads in stt_tpu.serve.Model and gives the transcript
   of stt_tpu's own export;
-- --export_tflite still raises, naming M15; the command line with
-  --device cpu.
+- --export_tflite writes output_graph.tflite beside the artifact, equal to
+  stt_tpu's when read back, holding the checkpoint's weights; the command
+  line with --device cpu.
 """
 
 import io
@@ -33,7 +34,7 @@ from stt_tpu_torch.artifact import PACKAGE_EXT, package_zip, params_from_numpy
 from stt_tpu_torch.config import SttConfig, parse_flags
 from stt_tpu_torch.export import export
 from stt_tpu_torch.serve import Model
-from stt_tpu_torch.train.checkpoints import CheckpointManager
+from stt_tpu_torch.train.checkpoints import CheckpointManager, load_graph_for_evaluation
 from stt_tpu_torch.train.step import create_train_state
 from test_torch_scorer import write_inputs
 
@@ -134,14 +135,43 @@ def test_port_export_serves_in_stt_tpu(checkpoints, form):
     assert model.beam_width == CARD["export_beam_width"]
 
 
-def test_export_tflite_stays_refused():
-    with pytest.raises(NotImplementedError, match="M15"):
-        SttConfig(export_tflite=True)
-    with pytest.raises(NotImplementedError, match="M15"):
-        parse_flags(["--export_tflite", "true"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_export_tflite_writes_the_reference_graph(checkpoints, quantize):
+    """--export_tflite (once refused by the port's config) writes
+    output_graph.tflite beside the artifact: read back by either package's
+    reader it equals stt_tpu's export, and in f32 it holds the checkpoint's
+    weights exactly."""
+    pytest.importorskip("tensorflow")
+    from stt_tpu.compat.tflite import read_reference_tflite as jax_read
+    from stt_tpu_torch.compat.tflite import read_reference_tflite
+    from stt_tpu_torch.config import NOT_PORTED
+
+    assert NOT_PORTED == {}
+    assert parse_flags(["--export_tflite", "true"]).export_tflite is True
     for flag, value in (("export_dir", "/tmp/e"), ("export_zip", True),
-                        ("export_quantize", True), ("export_beam_width", 32)):
+                        ("export_quantize", True), ("export_beam_width", 32),
+                        ("export_tflite", True), ("n_steps", 8)):
         assert getattr(SttConfig(**{flag: value}), flag) == value
+    got, want = exported(checkpoints, f"tflite_{quantize}", export_tflite=True,
+                         export_quantize=quantize)
+    path = os.path.join(got, "output_graph.tflite")
+    params, meta, geometry = read_reference_tflite(path)
+    for reader in (read_reference_tflite, jax_read):
+        other = reader(os.path.join(want, "output_graph.tflite"))
+        assert other[1:] == (meta, geometry)
+        for layer in params:
+            for leaf in params[layer]:
+                np.testing.assert_array_equal(other[0][layer][leaf], params[layer][leaf])
+    assert geometry["n_hidden"] == 32 and meta["beam_width"] == CARD["export_beam_width"]
+    assert meta["language"] == CARD["export_language"]
+    if not quantize:
+        state = create_train_state(SttConfig(**checkpoints["flags"]).model_config(training=False),
+                                   device="cpu")
+        state, _ = load_graph_for_evaluation(
+            CheckpointManager(str(checkpoints["root"] / "port_ckpt")), state, "auto")
+        for name, value in state.model.state_dict().items():
+            layer, leaf = name.split("/")
+            np.testing.assert_array_equal(params[layer][leaf], value.numpy())
 
 
 def test_export_module_runs_on_the_cpu_when_asked(checkpoints, tmp_path):

@@ -1,5 +1,7 @@
-"""stt_tpu_torch and chip_smoke.py import no JAX and nothing of stt_tpu,
-and the port's entry points refuse to run on the CPU unless asked to."""
+"""stt_tpu_torch and chip_smoke.py import no JAX and nothing of stt_tpu
+(nor TensorFlow on import), the port's native libraries load nothing of
+stt_tpu, and the port's entry points refuse to run on the CPU unless asked
+to."""
 
 import ast
 import os
@@ -59,10 +61,18 @@ def test_every_module_imports_without_jax_or_stt_tpu():
                    "stt_tpu_torch.training_graph_inference", "stt_tpu_torch.evaluate_flashlight",
                    "stt_tpu_torch.decode.flashlight", "stt_tpu_torch.evaluate_wav2vec2am"}
         assert m13_m14 <= set(names), m13_m14 - set(names)
+        m15 = {"stt_tpu_torch." + m for m in (
+            "compat", "compat.tflite", "compat.tf_checkpoint", "compat.tflite_export", "io",
+            "native_build",
+            "serve.cbridge", "serve.capi", "tools.downloader", "tools.generate_lm",
+            "tools.enumerate_kenlm_vocabulary", "tools.trie_load", "tools.data_set_tool",
+            "tools.check_characters", "tools.compare_samples", "tools.stats", "tools.play")}
+        assert m15 <= set(names), m15 - set(names)
+        assert "tensorflow" not in sys.modules, "TensorFlow is imported by a call, not on import"
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 78
+    assert int(proc.stdout.strip()) >= 94
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():
@@ -102,6 +112,63 @@ def test_native_decoder_builds_under_build_native_and_loads_nothing_of_stt_tpu()
     assert proc.returncode == 0, proc.stderr
     with open(os.path.join(ROOT, "stt_tpu_torch", "decode", "native.py")) as f:
         assert "stt_tpu/native" not in f.read()
+
+
+def test_c_api_builds_under_build_native_and_loads_nothing_of_stt_tpu():
+    """libstt_tpu_torch.so is built from the port's own sources into
+    build/native/ and, loaded, maps nothing under stt_tpu/; its bridge and
+    its build module name neither stt_tpu's native directory nor its
+    serving package."""
+    proc = run("""
+        import ctypes, sys
+        from pathlib import Path
+        from stt_tpu_torch.serve import capi
+        root = Path.cwd().resolve()
+        assert capi.SOURCE == root / "stt_tpu_torch" / "native" / "stt_c_api.cpp", capi.SOURCE
+        assert capi.CLIENT_SOURCE == root / "stt_tpu_torch" / "native" / "stt_client.c"
+        assert capi.LIBRARY == root / "build" / "native" / "libstt_tpu_torch.so", capi.LIBRARY
+        lib = ctypes.CDLL(str(capi.library()))
+        lib.STT_Version.restype = ctypes.c_char_p
+        assert lib.STT_Version() == b"0.1.0"
+        maps = Path("/proc/self/maps").read_text()
+        assert str(capi.LIBRARY) in maps
+        assert str(root / "stt_tpu") + "/" not in maps, "a library under stt_tpu/ is loaded"
+        assert "stt_tpu_torch.serve.cbridge" in sys.modules
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "stt_tpu")]
+    """)
+    assert proc.returncode == 0, proc.stderr
+    for name in ("serve/cbridge.py", "serve/capi.py", "native_build.py", "native/stt_c_api.cpp"):
+        with open(os.path.join(ROOT, "stt_tpu_torch", name)) as f:
+            text = f.read()
+        assert "stt_tpu/native" not in text and "stt_tpu.serve" not in text, name
+
+
+def test_cbridge_defaults_to_cuda_and_raises_without_it(tmp_path):
+    proc = run(f"""
+        import torch
+        from stt_tpu_torch.alphabet import Alphabet
+        from stt_tpu_torch.artifact import build_metadata, save_artifact
+        from stt_tpu_torch.frontend import FeatureConfig
+        from stt_tpu_torch.models import DeepSpeech, ModelConfig
+        from stt_tpu_torch.serve import cbridge
+        assert not torch.cuda.is_available()
+        cfg = ModelConfig(n_hidden=8, n_cell_dim=8, n_out=4)
+        alphabet = Alphabet().init_from_labels(["a", "b", " "])
+        model = DeepSpeech(cfg, generator=torch.Generator().manual_seed(0))
+        path = save_artifact({str(tmp_path / "m")!r}, model,
+                             build_metadata(cfg, FeatureConfig(), alphabet), alphabet)
+        try:
+            cbridge.create_model(path)
+        except RuntimeError as e:
+            assert "CUDA is not available" in str(e)
+        else:
+            raise AssertionError("cbridge.create_model ran without CUDA")
+        assert not cbridge._MODELS
+        cbridge.set_device("cpu")
+        handle = cbridge.create_model(path)
+        assert cbridge._MODELS[handle].device.type == "cpu"
+    """, CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_model_defaults_to_cuda_and_raises_without_it(tmp_path):

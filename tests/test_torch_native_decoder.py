@@ -263,7 +263,8 @@ def test_auto_raises_with_the_compilers_message(tmp_path, monkeypatch):
 
 def test_concurrent_first_builds_load_a_whole_library(tmp_path):
     """Two processes that build the library into the same empty place at
-    once both load a whole one and decode."""
+    once both load a whole one and decode, and leave the library and its
+    build stamp and no temporary file."""
     shutil.copy(native.SOURCE, tmp_path / "ctc_decoder.cpp")
     code = textwrap.dedent(f"""
         from pathlib import Path
@@ -283,7 +284,8 @@ def test_concurrent_first_builds_load_a_whole_library(tmp_path):
         out, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, err
         assert out.strip() == "1"
-    assert sorted(os.listdir(tmp_path / "build")) == ["libstt_decoder.so"]
+    assert sorted(os.listdir(tmp_path / "build")) == ["libstt_decoder.so",
+                                                      "libstt_decoder.so.cmd"]
 
 
 def test_shared_scorer_under_many_threads(packages, tmp_path):

@@ -257,12 +257,19 @@ def test_flags_parse_like_the_jax_package():
     assert got["load_checkpoint_dir"] == got["save_checkpoint_dir"] == "/tmp/ck"
 
 
-@pytest.mark.parametrize("argv,where", [
-    (["--export_tflite", "true"], "M15"),
+@pytest.mark.parametrize("argv", [
+    ["--export_tflite", "true"],
+    ["--export_tflite", "true", "--export_file_name", "graph", "--n_steps", "8"],
 ])
-def test_flags_of_unported_parts_raise(argv, where):
-    with pytest.raises(NotImplementedError, match=where):
-        parse_flags(argv)
+def test_export_tflite_flags_parse_like_the_jax_package(argv):
+    """The flags of the reference-format export, once refused, now parse
+    to stt_tpu's values; no flag is left unported."""
+    from stt_tpu_torch.config import NOT_PORTED
+
+    assert NOT_PORTED == {}
+    got = parse_flags(argv).to_dict()
+    assert got == jax_parse_flags(argv).to_dict()
+    assert got["export_tflite"] is True
 
 
 @pytest.mark.parametrize("argv", [
