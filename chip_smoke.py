@@ -77,7 +77,8 @@
    the card, and a bytes-mode package), tokens and timesteps equal and
    confidences within 1e-6; beam 500 natively against the Python decoder
    at 128; the batch fan-out on infer_logits[B=16]'s softmax at 1 and 16
-   threads.
+   threads; the gprof driver prof_decoder (500 frames x 10 decodes at beam
+   500 with the word scorer, in a scratch directory), its wall seconds.
 4. Training phase: 32 seeded synthetic utterances of 2-5 s with random
    transcripts, a train and a dev CSV, and `train(SttConfig(...))` of the
    full-width model at B = 16 for one epoch with dropout; every step must
@@ -166,9 +167,18 @@
    .tflite fixtures (f32 and int8, tests/fixtures/) imported by the port's
    reader and served by `Model(dir)` on the card: logits within
    COMPAT_LOGITS_TOL of the CPU's, equal transcripts, K1.
+4k. Import phase (also `--phases import`): LDC93S1, LibriSpeech (FLAC),
+   TIMIT (SPHERE), Common Voice (WAV clips and TSVs) and Switchboard (a
+   two-channel 8 kHz mu-law call with MS98 transcripts) written from the
+   seed in their published layouts and imported by the port's importers'
+   main(argv) (Common Voice through a pool of 2 spawned workers): rows,
+   folded transcripts and 16 kHz mono WAVs as built; then `train(config)`
+   of the full-width model on the four train CSVs (B = 8, one epoch, the
+   LDC93S1 CSV as dev; K3 and K4 every step) and `evaluate.main` on the
+   test CSVs with --device_decode full at beam 32 (K1 and K5).
 5. Prints one JSON line listing every kernel (launches counted over the
    serving, training, evaluation, input, pool, augment, parallel, tp,
-   entry, capi and compat phases' runs), the card's name and power limit,
+   entry, capi, compat and import phases' runs), the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
@@ -1085,6 +1095,14 @@ def utterance(seconds: float, rate: int, rng: np.random.RandomState) -> np.ndarr
     return np.clip(audio, -1, 1).astype(np.float32)
 
 
+def transcript(seconds: float, rng: np.random.RandomState) -> str:
+    """Random words over LABELS, at most 8 characters a second of audio."""
+    words = rng.randint(3, 9)
+    text = " ".join("".join(rng.choice(LABELS[1:], rng.randint(2, 7)))
+                    for _ in range(words))[: int(seconds * 8)]
+    return text.strip() or "a"
+
+
 def device_events(prof) -> list:
     """The profiler's kernels and copies on the card, by name. (A CPU-side
     op such as aten::mm also reports its kernels' time as its own device
@@ -1434,7 +1452,42 @@ def decoder_phase(device, seed: int, scorers: dict, inputs: dict) -> dict:
     print(f"decoder: native == Python in {len(holds)} cases; batch 16 threads "
           f"{batch[0]['ms'] / batch[1]['ms']:.2f}x faster than 1", flush=True)
     return {"holds": holds, "beam_500_vs_128": apart, "batch": batch,
-            "scorers": scorers, "conf_tol": DECODER_CONF_TOL}
+            "scorers": scorers, "conf_tol": DECODER_CONF_TOL,
+            "prof_decoder": run_prof_decoder(scorers["alphabet"]["path"])}
+
+
+def host_cpu() -> str:
+    """The host's CPU model (or, where /proc/cpuinfo names none, its
+    architecture) and its core count."""
+    import platform
+
+    with open("/proc/cpuinfo") as f:
+        names = [line.split(":", 1)[1].strip() for line in f if line.startswith("model name")]
+    names = [name for name in names if name != "unknown"]
+    return f"{names[0] if names else platform.machine()}, {os.cpu_count()} cores"
+
+
+def run_prof_decoder(scorer_path: str) -> dict:
+    """The decoder's gprof driver (native/prof_decoder.cc, built at setup
+    with -pg) at its own 500 frames x 10 decodes at beam 500, with the word
+    scorer, in a scratch working directory (it writes gmon.out there): its
+    wall seconds and the transcript line it prints on stderr."""
+    from stt_tpu_torch import native_build
+
+    scratch = os.path.join(ROOT, "build", "chip_smoke", "prof_decoder")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    start = time.perf_counter()
+    proc = subprocess.run([str(native_build.PROF_DECODER), scorer_path], cwd=scratch,
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - start
+    line = [x for x in proc.stderr.splitlines() if x.startswith("transcript[")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"prof_decoder exited {proc.returncode}: {proc.stderr[-2000:]}")
+    rec = {"wall_s": wall_s, "frames": 500, "decodes": 10, "beam": 500, "scorer": "words",
+           "transcript": line[0], "host": host_cpu(), "gpu": gpu_line()}
+    print("prof_decoder", json.dumps(rec), flush=True)
+    return rec
 
 
 def host_decoder_row(gpu, name: str, fn, beam: int, scorers, emissions, audio_s: float,
@@ -2364,10 +2417,7 @@ def write_dataset(data_dir: str, rng: np.random.RandomState, rate: int) -> dict:
         with CSVWriter(paths[split]) as writer:
             for i in range(n):
                 seconds = rng.uniform(2.0, 5.0)
-                words = rng.randint(3, 9)
-                text = " ".join("".join(rng.choice(LABELS[1:], rng.randint(2, 7)))
-                                for _ in range(words))[: int(seconds * 8)]
-                writer.add(Sample(f"{split}{i}", text.strip() or "a",
+                writer.add(Sample(f"{split}{i}", transcript(seconds, rng),
                                   _audio=utterance(seconds, rate, rng), _rate=rate))
     return paths
 
@@ -3860,10 +3910,238 @@ def compat_phase(device, seed: int, work_dir: str, card: str) -> dict:
     return {"runs": runs, "launches": totals, "gpu": card}
 
 
+IMPORT_SPLITS = {  # (corpus, CSV): rows the import must write
+    ("ldc93s1", "ldc93s1.csv"): 1,
+    ("librispeech", "LibriSpeech/librivox-dev-clean.csv"): 8,
+    ("timit", "timit_train.csv"): 3, ("timit", "timit_test.csv"): 2,
+    ("timit", "timit_all.csv"): 5,
+    ("common_voice", "out/train.csv"): 4, ("common_voice", "out/dev.csv"): 2,
+    ("switchboard", "swb-train.csv"): 3, ("switchboard", "swb-dev.csv"): 1,
+    ("switchboard", "swb-test.csv"): 1,
+}
+IMPORT_TRAIN = ("LibriSpeech/librivox-dev-clean.csv", "timit_train.csv", "out/train.csv",
+                "swb-train.csv")
+IMPORT_TEST = ("timit_test.csv", "out/dev.csv", "swb-test.csv")
+SWB_SEGMENTS = (("A", 0.5, 3.0), ("A", 3.5, 6.5), ("A", 10.5, 13.5), ("B", 1.0, 4.0),
+                ("B", 14.0, 17.5))  # (channel, start s, stop s) with words; A 7-10 s is noise
+
+
+def write_import_corpora(root: str, rng: np.random.RandomState) -> dict:
+    """Five corpora under `root` in their published layouts, from `rng`:
+    LDC93S1 (a 3 s WAV and its .txt with the sample indices), LibriSpeech
+    dev-clean (FLAC and .trans.txt in capitals), TIMIT (NIST SPHERE .WAV
+    and .TXT prompts, one SA prompt), Common Voice (clips/*.wav with
+    train.tsv and dev.tsv) and Switchboard (a two-channel 8 kHz mu-law
+    SPHERE call of 20 s with MS98 transcripts, one segment noise only).
+    Returns each corpus's transcripts, folded as its importer folds them,
+    and the argv of its importer's main."""
+    from stt_tpu_torch.data import write_wav
+    from stt_tpu_torch.data.sph import write_sph
+
+    rate = 16000
+    shutil.rmtree(root, ignore_errors=True)
+    want = {}
+
+    def folder(*parts) -> str:
+        path = os.path.join(root, *parts)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    source = folder("ldc93s1_source")
+    text = transcript(3.0, rng)
+    write_wav(os.path.join(source, "LDC93S1.wav"), utterance(3.0, rate, rng), rate)
+    with open(os.path.join(source, "LDC93S1.txt"), "w") as f:
+        f.write(f"0 {3 * rate} {text.capitalize()}.\n")
+    want["ldc93s1"] = ([text], [folder("ldc93s1"), "--source_dir", source])
+
+    chapter = folder("librispeech", "LibriSpeech", "dev-clean", "1272", "128104")
+    lines, texts = [], []
+    for i in range(8):
+        seconds = rng.uniform(2.0, 5.0)
+        texts.append(transcript(seconds, rng))
+        write_flac(os.path.join(chapter, f"1272-128104-{i:04d}.flac"),
+                   utterance(seconds, rate, rng), rate)
+        lines.append(f"1272-128104-{i:04d} {texts[-1].upper()}\n")
+    with open(os.path.join(chapter, "1272-128104.trans.txt"), "w") as f:
+        f.write("".join(lines))
+    want["librispeech"] = (texts, [os.path.join(root, "librispeech"), "--sets", "dev-clean",
+                                   "--base_url", ""])
+
+    texts = []
+    for subset, speaker, utt in (("TRAIN", "DR1/FCJF0", "SA1"), ("TRAIN", "DR1/FCJF0", "SI1027"),
+                                 ("TRAIN", "DR1/FCJF0", "SX127"), ("TRAIN", "DR2/MABC0", "SX64"),
+                                 ("TEST", "DR1/FAKS0", "SI943"), ("TEST", "DR1/FAKS0", "SX133")):
+        path = folder("timit", "TIMIT", subset, *speaker.split("/"))
+        seconds = rng.uniform(2.0, 4.0)
+        text = transcript(seconds, rng)
+        write_sph(os.path.join(path, f"{utt}.WAV"), utterance(seconds, rate, rng), rate)
+        with open(os.path.join(path, f"{utt}.TXT"), "w") as f:
+            f.write(f"0 {int(seconds * rate)} {text.capitalize()}.\n")
+        if not utt.startswith("SA"):  # the calibration prompts are not imported
+            texts.append(text)
+    want["timit"] = (texts, [os.path.join(root, "timit")])
+
+    clips, texts = folder("common_voice", "clips"), []
+    for split, n in (("train", 4), ("dev", 2)):
+        lines = ["client_id\tpath\tsentence\tup_votes\tdown_votes"]
+        for i in range(n):
+            seconds = rng.uniform(2.0, 4.0)
+            texts.append(transcript(seconds, rng))
+            name = f"common_voice_en_{split}_{i}.wav"
+            write_wav(os.path.join(clips, name), utterance(seconds, rate, rng), rate)
+            lines.append(f"speaker{i}\t{name}\t{texts[-1].capitalize()}!\t2\t0")
+        with open(os.path.join(root, "common_voice", f"{split}.tsv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    want["common_voice"] = (texts, [
+        "--audio_dir", clips, "--tsv_dir", os.path.join(root, "common_voice"),
+        "--target_dir", os.path.join(root, "common_voice", "out"), "--workers", "2"])
+
+    call = folder("switchboard", "swb1_d1", "data")
+    channels = np.stack([utterance(20.0, 8000, rng), utterance(20.0, 8000, rng)], axis=-1)
+    write_sph(os.path.join(call, "sw02001.sph"), channels, 8000, coding="ulaw")
+    trans = folder("switchboard", "swb_ms98_transcriptions", "20", "2001")
+    lines, texts = {"A": [], "B": []}, []
+    for side, start, stop in SWB_SEGMENTS:
+        texts.append(transcript(stop - start, rng))
+        words = texts[-1].split(" ")
+        words.insert(len(words) // 2, "[laughter]")  # an annotation the importer drops
+        lines[side].append((start, stop, " ".join(words)))
+    lines["A"].insert(2, (7.0, 10.0, "[noise]"))
+    for side, segments in lines.items():
+        with open(os.path.join(trans, f"sw2001{side}-ms98-a-trans.text"), "w") as f:
+            f.write("".join(f"sw2001{side}-ms98-a-{i + 1:04d} {start:.2f} {stop:.2f} {words}\n"
+                            for i, (start, stop, words) in enumerate(segments)))
+    want["switchboard"] = (texts, [os.path.join(root, "switchboard")])
+    return want
+
+
+def read_rows(path: str) -> list:
+    import csv
+
+    with open(path, newline="", encoding="utf-8") as f:
+        return list(csv.DictReader(f))
+
+
+def import_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """The port's counterpart of bin/run-ldc93s1.sh with a multi-corpus
+    import, at full width on the card:
+    - five corpora written from the seed in their published layouts
+      (`write_import_corpora`), each imported by its importer's main(argv)
+      in this process (Common Voice through import_cv2's pool of 2 spawned
+      workers): each CSV has the rows that were built (TIMIT's SA prompt
+      and Switchboard's noise-only segment dropped), its transcripts are
+      the written ones after the importer's folding, and every WAV reads
+      back as 16 kHz mono;
+    - `train(config, device="cuda")` of the full-width model (n_hidden
+      2048) on the LibriSpeech, TIMIT, Common Voice and Switchboard train
+      CSVs with LDC93S1 as dev, B = 8, one epoch, dropout 0.05: at least 3
+      steps, K3 and K4 once a step, finite losses, parameters that move;
+    - `stt_tpu_torch.evaluate.main` on the TIMIT, Common Voice and
+      Switchboard test CSVs with --device_decode full at beam 32: K1 and
+      K5, no training kernel (its WER is that of random weights: a cost,
+      not a score).
+    Prints each importer's wall ms and audio-s, the rows per CSV, the train
+    steps, wall s and audio-s/s, evaluate's wall ms and the phase's
+    launches, each beside the card's name and power limit."""
+    import importlib
+
+    from stt_tpu_torch import evaluate as evaluate_module
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.data.audio import read_audio
+    from stt_tpu_torch.models import DeepSpeech
+    from stt_tpu_torch.train.trainer import train
+
+    corpora = os.path.join(work_dir, "corpora")
+    want = write_import_corpora(corpora, np.random.RandomState(seed + 13))
+    modules = {"ldc93s1": "import_ldc93s1", "librispeech": "import_librivox",
+               "timit": "import_timit", "common_voice": "import_cv2", "switchboard": "import_swb"}
+    imports, rows, failures = [], {}, []
+    for corpus, (texts, argv) in want.items():
+        main = importlib.import_module(f"stt_tpu_torch.tools.{modules[corpus]}").main
+        start = time.perf_counter()
+        main(argv)
+        ms = (time.perf_counter() - start) * 1e3
+        base = os.path.join(corpora, corpus)
+        got, audio_s = [], 0.0
+        for (name, rel), n in IMPORT_SPLITS.items():
+            if name != corpus:
+                continue
+            rows[rel] = read_rows(os.path.join(base, rel))
+            if len(rows[rel]) != n:
+                failures.append(f"{rel}: {len(rows[rel])} rows, built {n}")
+            if rel != "timit_all.csv":
+                got += [r["transcript"] for r in rows[rel]]
+            for r in rows[rel]:
+                audio, rate = read_audio(r["wav_filename"])
+                if rate != 16000 or audio.ndim != 1 or os.path.getsize(r["wav_filename"]) != int(
+                        r["wav_filesize"]):
+                    failures.append(f"{r['wav_filename']}: {rate} Hz, shape {audio.shape}")
+                if rel != "timit_all.csv":
+                    audio_s += len(audio) / rate
+        if sorted(got) != sorted(texts):
+            failures.append(f"{corpus}: imported {sorted(got)}, written {sorted(texts)}")
+        rec = {"importer": modules[corpus], "wall_ms": ms, "audio_s": audio_s, "rows": len(got),
+               "gpu": card}
+        print("import", json.dumps(rec), flush=True)
+        imports.append(rec)
+    print("import rows", json.dumps({rel: len(r) for rel, r in rows.items()}), flush=True)
+    if failures:
+        raise AssertionError("import phase: " + "; ".join(failures))
+    csv_of = {rel: os.path.join(corpora, corpus, rel) for corpus, rel in IMPORT_SPLITS}
+
+    alphabet = os.path.join(work_dir, "alphabet.txt")
+    with open(alphabet, "w") as f:
+        f.write("".join(label + "\n" for label in LABELS))
+    ckpt, summary = os.path.join(work_dir, "checkpoints"), os.path.join(work_dir, "summary")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(summary, ignore_errors=True)
+    config = SttConfig(
+        train_files=[csv_of[rel] for rel in IMPORT_TRAIN], dev_files=[csv_of["ldc93s1.csv"]],
+        alphabet_config_path=alphabet, n_hidden=2048, train_batch_size=8, dev_batch_size=8,
+        epochs=1, dropout_rate=0.05, checkpoint_dir=ckpt, summary_dir=summary, seed=seed)
+    initial = DeepSpeech(config.model_config(training=True),
+                         generator=torch.Generator().manual_seed(seed)).state_dict()
+    state, train_ms, launches = run_counted("import: train", lambda: train(config, device="cuda"),
+                                            ("k1", "k3", "k4"))
+    train_audio_s = sum(float(r["wav_filesize"]) - 44 for rel in IMPORT_TRAIN
+                        for r in rows[rel]) / 2 / 16000
+    with open(os.path.join(summary, "scalars.jsonl")) as f:
+        step_losses = [r["train/step_loss"] for r in map(json.loads, f) if "train/step_loss" in r]
+    moved = sum(not torch.equal(v.detach().cpu(), initial[k]) for k, v in state.params.items())
+    rec = {"steps": state.step, "train_s": train_ms / 1e3, "samples": sum(
+        len(rows[rel]) for rel in IMPORT_TRAIN), "audio_s": train_audio_s,
+        "audio_s_per_s": train_audio_s / (train_ms / 1e3), "launches": launches,
+        "step_losses": step_losses, "params_moved": f"{moved} of {len(initial)}", "gpu": card}
+    print("import train", json.dumps(rec), flush=True)
+    if not launches["k3"] == launches["k4"] == state.step >= 3:
+        failures.append(f"every train step must launch K3 and K4: {launches}, {state.step} steps")
+    if len(step_losses) != state.step - 1 or not np.isfinite(step_losses).all():
+        failures.append(f"train step losses: {step_losses}")
+    if moved != len(initial):
+        failures.append(f"parameters moved: {moved} of {len(initial)}")
+
+    argv = ["--test_files", ",".join(csv_of[rel] for rel in IMPORT_TEST),
+            "--checkpoint_dir", ckpt, "--alphabet_config_path", alphabet, "--n_hidden", "2048",
+            "--test_batch_size", "8", "--device_decode", "full", "--export_beam_width", "32"]
+    _, eval_ms, eval_launches = run_counted("import: evaluate",
+                                            lambda: evaluate_module.main(argv), ("k1", "k5"))
+    evaluated = {"wall_ms": eval_ms, "launches": eval_launches, "test_files": list(IMPORT_TEST),
+                 "samples": sum(len(rows[rel]) for rel in IMPORT_TEST), "gpu": card}
+    print("import evaluate", json.dumps(evaluated), flush=True)
+    totals = {key: launches[key] + eval_launches[key] for key in launches}
+    print(f"import: launches {json.dumps(totals)}; gpu: {card}", flush=True)
+    if failures:
+        raise AssertionError("import phase: " + "; ".join(failures))
+    return {"imports": imports, "rows": {rel: len(r) for rel, r in rows.items()}, "train": rec,
+            "evaluate": evaluated, "launches": totals, "gpu": card}
+
+
 def build_native_decoder(out: dict) -> None:
     """Build (g++) and load the port's native CTC decoder, then build (g++,
-    gcc) the C API's library and stt_client; records the seconds each took
-    and their paths in `out`, or the error."""
+    gcc) the C API's library and stt_client, and (g++ -pg) the decoder's
+    profiling driver; records the seconds each took and their paths in
+    `out`, or the error."""
+    from stt_tpu_torch import native_build
     from stt_tpu_torch.decode import native
     from stt_tpu_torch.serve import capi
 
@@ -3873,11 +4151,14 @@ def build_native_decoder(out: dict) -> None:
         out.update(s=time.time() - start, library=os.path.relpath(native.LIBRARY, ROOT))
         start = time.time()
         capi.client()
+        out.update(capi_s=time.time() - start, capi=[os.path.relpath(p, ROOT)
+                                                      for p in (capi.LIBRARY, capi.CLIENT)])
+        start = time.time()
+        prof = native_build.build_prof_decoder()
     except RuntimeError as e:
         out["error"] = str(e)
         return
-    out.update(capi_s=time.time() - start, capi=[os.path.relpath(p, ROOT)
-                                                  for p in (capi.LIBRARY, capi.CLIENT)])
+    out.update(prof_s=time.time() - start, prof=os.path.relpath(prof, ROOT))
 
 
 def main() -> int:
@@ -3889,7 +4170,8 @@ def main() -> int:
                              "its source")
     parser.add_argument("--phases", default="",
                         help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation, "
-                             "input, pool, augment, parallel, tp, entry, capi, compat) to run alone "
+                             "input, pool, augment, parallel, tp, entry, capi, compat, import) to "
+                             "run alone "
                              "(evaluation and entry train their checkpoint first), for work on "
                              "a kernel, the host decoder or a module: prints their records and "
                              "no result line")
@@ -3931,14 +4213,16 @@ def main() -> int:
         raise RuntimeError(native_build["error"])
     print(f"build: {time.time() - t0:.1f} s (native decoder {native_build['s']:.1f} s, "
           f"{native_build['library']}; C API {native_build['capi_s']:.1f} s, "
-          f"{', '.join(native_build['capi'])})", flush=True)
+          f"{', '.join(native_build['capi'])}; profiling driver {native_build['prof_s']:.1f} s, "
+          f"{native_build['prof']})", flush=True)
     work_dir = os.path.join(ROOT, "build", "chip_smoke")
 
     if args.phases:
         alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase}
         for name in args.phases.split(","):
-            if name == "input":
-                input_phase(device, args.seed, os.path.join(work_dir, "input"), card)
+            if name in ("input", "import"):
+                phase = input_phase if name == "input" else import_phase
+                phase(device, args.seed, os.path.join(work_dir, name), card)
                 continue
             if name == "decoder":
                 decoder_phase(device, args.seed, build_scorers(os.path.join(work_dir, "lm"), args.seed),
@@ -3989,6 +4273,7 @@ def main() -> int:
                         scorers, card)
     capi = capi_phase(device, args.seed, os.path.join(work_dir, "capi"), scorers, card)
     compat = compat_phase(device, args.seed, os.path.join(work_dir, "compat"), card)
+    imported = import_phase(device, args.seed, os.path.join(work_dir, "import"), card)
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
     main_shape = next(r for r in k1 if (r["dtype"], r["B"], r["T"]) == ("float32", 1, 16))
@@ -4001,7 +4286,7 @@ def main() -> int:
                      + training["launches"]["k1"] + evaluation["launches"]["k1"]
                      + pool["launches"]["k1"] + parallel["launches"]["k1"] + one_rank["k1"]
                      + tp["launches"]["k1"] + entry["launches"]["k1"] + capi["launches"]["k1"]
-                     + compat["launches"]["k1"]),
+                     + compat["launches"]["k1"] + imported["launches"]["k1"]),
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -4021,7 +4306,7 @@ def main() -> int:
             "replaces": f"stt_tpu/ops/lstm_train.py:{line}",
             "launches": (training["launches"][key] + inputs["launches"][key]
                          + augment["launches"][key] + parallel["launches"][key] + one_rank[key]
-                         + tp["launches"][key]),
+                         + tp["launches"][key] + imported["launches"][key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4046,7 +4331,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": (sum(r["launches"][key] for r in serving["requests"])
                          + evaluation["launches"][key] + pool["launches"].get(key, 0)
-                         + entry["launches"][key]),
+                         + entry["launches"][key] + imported["launches"][key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4062,7 +4347,7 @@ def main() -> int:
                        "serving": serving, "decoder": decoder, "training": training,
                        "evaluation": evaluation, "input": inputs, "pool": pool,
                        "augment": augment, "parallel": parallel, "tp": tp, "entry": entry,
-                       "capi": capi, "compat": compat, "kernels": kernels},
+                       "capi": capi, "compat": compat, "import": imported, "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {card}")

@@ -25,10 +25,14 @@ Package layout:
                              .scorer packages, vocabulary tries, emission
                              pruning, the beam search on the card
   stt_tpu_torch.lm         - KenLM binary reader and writer, ARPA models
-  stt_tpu_torch.native     - the native decoder's C++ source, and the C
-                             API's (stt_tpu.h, stt_c_api.cpp, stt_client.c)
+  stt_tpu_torch.native     - the native decoder's C++ source, its two
+                             harnesses (decoder_smoke.cc, prof_decoder.cc),
+                             and the C API's (stt_tpu.h, stt_c_api.cpp,
+                             stt_client.c)
   stt_tpu_torch.tools      - generate_scorer_package, generate_lm and the
-                             other LM and data tools, downloader
+                             other LM and data tools, downloader, the 26
+                             corpus importers (import_*.py, importers,
+                             ldc_conversational)
   stt_tpu_torch.stream     - stateful streaming inference
   stt_tpu_torch.serve      - user-facing Model/Stream API, the stream pool,
                              and the C API's bridge (cbridge) and build (capi)

@@ -22,16 +22,15 @@ from __future__ import annotations
 import ctypes
 import struct
 import threading
-from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from stt_tpu_torch.decode.beam import DecodeResult
-from stt_tpu_torch.native_build import build_if_stale
+from stt_tpu_torch.native_build import BUILD, DECODER_SOURCE, build_if_stale
 
-SOURCE = Path(__file__).resolve().parents[1] / "native" / "ctc_decoder.cpp"
-LIBRARY = Path(__file__).resolve().parents[2] / "build" / "native" / "libstt_decoder.so"
+SOURCE = DECODER_SOURCE
+LIBRARY = BUILD / "libstt_decoder.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 MAX_TOKENS = 65536  # decode()'s output buffer, tokens over all results
 

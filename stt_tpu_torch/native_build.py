@@ -1,6 +1,7 @@
 """Build at first use of the port's host C and C++ code (`native/`): the
 CTC decoder (`decode.native`), the C API library and `stt_client`
-(`serve.capi`). Each is built into `build/native/` at the root of the
+(`serve.capi`), and the decoder's two harnesses (`build_decoder_smoke`,
+`build_prof_decoder`). Each is built into `build/native/` at the root of the
 checkout; a failed build raises RuntimeError with the compiler's message.
 """
 
@@ -11,6 +12,12 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import List
+
+NATIVE = Path(__file__).resolve().parent / "native"
+BUILD = Path(__file__).resolve().parents[1] / "build" / "native"
+DECODER_SOURCE = NATIVE / "ctc_decoder.cpp"
+DECODER_SMOKE = BUILD / "decoder_smoke_asan"
+PROF_DECODER = BUILD / "prof_decoder"
 
 
 def build_if_stale(command: List[str], inputs: List[Path], output: Path, what: str) -> None:
@@ -48,3 +55,28 @@ def build_if_stale(command: List[str], inputs: List[Path], output: Path, what: s
     stamp_tmp = stamp.with_name(f"{stamp.name}.{tag}")
     stamp_tmp.write_text(line)
     os.replace(stamp_tmp, stamp)
+
+
+def build_decoder_smoke() -> Path:
+    """The C ABI harness of the native decoder (`native/decoder_smoke.cc`
+    with `native/ctc_decoder.cpp`) under ASan and UBSan, built if needed;
+    run it with no argument, then with a .scorer path: it prints
+    "decoder_smoke OK" and exits 0 when every round passed."""
+    source = NATIVE / "decoder_smoke.cc"
+    # stt_tpu's Makefile: its CXXFLAGS, then its sanitize target's own
+    build_if_stale(["g++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-g",
+                    "-fsanitize=address,undefined", "-fno-omit-frame-pointer",
+                    str(DECODER_SOURCE), str(source)],
+                   [source, DECODER_SOURCE], DECODER_SMOKE, "the decoder's sanitizer harness")
+    return DECODER_SMOKE
+
+
+def build_prof_decoder() -> Path:
+    """The gprof driver of the native decoder (`native/prof_decoder.cc`,
+    which includes `native/ctc_decoder.cpp`), built if needed. It decodes 500
+    frames 10 times at beam 500, prints the first transcript on stderr, and
+    writes gmon.out into its working directory: run it from a scratch one."""
+    source = NATIVE / "prof_decoder.cc"
+    build_if_stale(["g++", "-O2", "-pg", "-std=c++17", str(source)], [source, DECODER_SOURCE],
+                   PROF_DECODER, "the decoder's profiling driver")
+    return PROF_DECODER

@@ -27,13 +27,11 @@ import threading
 from pathlib import Path
 from typing import List
 
-from stt_tpu_torch.native_build import build_if_stale
+from stt_tpu_torch.native_build import BUILD, NATIVE, build_if_stale
 
-NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCE = NATIVE / "stt_c_api.cpp"
 HEADER = NATIVE / "stt_tpu.h"
 CLIENT_SOURCE = NATIVE / "stt_client.c"
-BUILD = Path(__file__).resolve().parents[2] / "build" / "native"
 LIBRARY = BUILD / "libstt_tpu_torch.so"
 CLIENT = BUILD / "stt_client"
 

@@ -114,6 +114,31 @@ def test_native_decoder_builds_under_build_native_and_loads_nothing_of_stt_tpu()
         assert "stt_tpu/native" not in f.read()
 
 
+def test_decoder_harnesses_build_under_build_native_from_the_ports_sources():
+    """decoder_smoke (ASan/UBSan) and prof_decoder are built from the port's
+    own sources into build/native/ at the root of the checkout, and neither
+    their build commands nor the libraries they link name stt_tpu/."""
+    from pathlib import Path
+
+    from stt_tpu_torch import native_build
+
+    root = Path(ROOT).resolve()
+    native = root / "stt_tpu_torch" / "native"
+    for build, name, sources in (
+            (native_build.build_decoder_smoke, "decoder_smoke_asan",
+             ("ctc_decoder.cpp", "decoder_smoke.cc")),
+            (native_build.build_prof_decoder, "prof_decoder", ("prof_decoder.cc",))):
+        binary = build()
+        assert binary == root / "build" / "native" / name, binary
+        command = binary.with_name(name + ".cmd").read_text().split()
+        assert [str(native / s) for s in sources] == [a for a in command if a.endswith(sources)]
+        assert "stt_tpu/" not in " ".join(command).replace("stt_tpu_torch/", "")
+        linked = subprocess.run(["ldd", str(binary)], capture_output=True, text=True, timeout=60)
+        assert linked.returncode == 0 and str(root / "stt_tpu") + "/" not in linked.stdout
+    with open(os.path.join(ROOT, "stt_tpu_torch", "native", "prof_decoder.cc")) as f:
+        assert '#include "ctc_decoder.cpp"' in f.read()  # the port's copy, beside it
+
+
 def test_c_api_builds_under_build_native_and_loads_nothing_of_stt_tpu():
     """libstt_tpu_torch.so is built from the port's own sources into
     build/native/ and, loaded, maps nothing under stt_tpu/; its bridge and
