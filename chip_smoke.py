@@ -14,12 +14,14 @@
    call that computes the same function:
    - K1, the inference recurrence, at H = 2048, B in {1, 8, 16, 32}, T in
      {16, 200} and the batch request's (B, T) = (16, 240), f32 and bf16,
+     and in bf16 the benchmark tool's batch (128, 500) with cuDNN in bf16,
      ragged lengths, non-zero initial state, with the launch plan, the time
      per step, the ratio to cuDNN and, at a stream's chunk (B = 1, T = 16),
      the time with the L2 overwritten between calls;
    - K3 and K4, the training forward with stashes and the reverse sweep,
      at H = 2048, B in {8, 32}, T in {50, 200} and at the training phase's
-     shape (B = 16, T = 256), f32 and bf16, ragged lengths, non-zero
+     shape (B = 16, T = 256), f32 and bf16 (and in bf16 the benchmark
+     tool's train step, (64, 500), with cuDNN in bf16), ragged lengths, non-zero
      initial state and final-state gradients, with both launch plans and
      their streaming floors; K4 twice on the same inputs must give the same
      bits; K4 is also timed with the weight gradient's GEMM beside it, the
@@ -176,9 +178,18 @@
    of the full-width model on the four train CSVs (B = 8, one epoch, the
    LDC93S1 CSV as dev; K3 and K4 every step) and `evaluate.main` on the
    test CSVs with --device_decode full at beam 32 (K1 and K5).
+4l. Scripts phase (also `--phases scripts`): the port's scripts as a user
+   runs them, on a `write_smoke_set` tree (the reference's smoke data with
+   learnable stand-ins for its recordings): the benchmark tool at its
+   defaults (K1 in bf16 at B 128, T 500; the 2048 stream; a bf16 train
+   step at B 64, T 500 through K3/K4), the stream latency probe (K5
+   against the host decoder: equal transcripts), and every
+   stt_tpu_torch/bin/ script through `sh` with device=cuda, in two lanes
+   side by side: each must exit 0 with its gates as written and launch its
+   kernels (counted in its child processes through STT_TORCH_LAUNCH_LOG).
 5. Prints one JSON line listing every kernel (launches counted over the
    serving, training, evaluation, input, pool, augment, parallel, tp,
-   entry, capi, compat and import phases' runs), the card's name and power limit,
+   entry, capi, compat, import and scripts phases' runs), the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero. Without CUDA it exits 1
@@ -192,6 +203,7 @@ import ctypes
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -213,6 +225,17 @@ K1_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-4}
 # bf16 on an H100). zs is bf16 in both dtypes: within one bf16 ulp (2^-7
 # of the value) plus the tolerance.
 TRAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+# the benchmark tool's shapes (stt_tpu_torch/tools/benchmark.py at its
+# defaults, --batch 128 --seconds 10): K1 in its batch inference, K3 and K4
+# in its train step at B = batch // 2, both in bf16
+BENCH_K1_SHAPE, BENCH_TRAIN_SHAPE = (128, 500), (64, 500)
+# cuDNN (torch.nn.LSTM) against the kernels on their function, before its
+# time is taken: the forward by max abs diff, the backward by the largest
+# relative one (see cudnn_times). In f32 both keep f32 state; in bf16
+# cuDNN also rounds its output and state to bf16, so it is held only to
+# computing the same function (measured on an H100 at the benchmark shapes:
+# 3.7e-3 forward, 5.2e-3 relative backward).
+CUDNN_AGREE = {torch.float32: (1e-4, 2e-2), torch.bfloat16: (5e-2, 1e-1)}
 # card vs CPU, one full-width train step in f32: the loss, the gradient
 # norm, and the LSTM kernel's gradient (relative to its largest value);
 # 47M-parameter products summed in another order (measured on an H100:
@@ -410,7 +433,8 @@ def k1_phase(device, seed: int) -> list:
         packed = pack_w_h(w_h)  # kept across calls, as the serving model keeps it
         pack_ms = cuda_ms(lambda: pack_w_h(w_h), 5)
         lstm = cudnn_lstm(w_h, H, device) if dtype == torch.float32 else None
-        for B, T in shapes:
+        # and in bf16 the benchmark tool's batch, with cuDNN in bf16 beside it
+        for B, T in shapes + ([BENCH_K1_SHAPE] if dtype == torch.bfloat16 else []):
             x_proj = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(device).to(dtype)
             c0 = (torch.randn(B, H, generator=gen) * 0.1).to(device)
             h0 = ((torch.rand(B, H, generator=gen) * 2 - 1) * 0.1).to(device)
@@ -438,19 +462,23 @@ def k1_phase(device, seed: int) -> list:
             # the plain version is a host-bound loop: one timed run of the long ones
             plain_ms = cuda_ms(lambda: recurrence(x_proj, w_h, c0, h0, seq), reps if T <= 16 else 1)
             library_ms = library_err = None
-            if lstm is not None:
+            library = lstm
+            if library is None and (B, T) == BENCH_K1_SHAPE:
+                library = cudnn_lstm(w_h, H, device).to(dtype)
+            if library is not None:
                 full = torch.full((B,), T, dtype=torch.int32, device=device)
                 k_out, (k_c, k_h) = lstm_recurrence(x_proj, w_h, c0, h0, full)
+                state0 = (h0[None].to(dtype), c0[None].to(dtype))
                 with torch.no_grad():
-                    l_out, (l_h, l_c) = lstm(x_proj, (h0[None], c0[None]))
+                    l_out, (l_h, l_c) = library(x_proj, state0)
                 library_err = max(
-                    (k_out - l_out).abs().max().item(),
-                    (k_c - l_c[0]).abs().max().item(),
-                    (k_h - l_h[0]).abs().max().item(),
+                    (k_out - l_out.float()).abs().max().item(),
+                    (k_c - l_c[0].float()).abs().max().item(),
+                    (k_h - l_h[0].float()).abs().max().item(),
                 )
-                if library_err <= 1e-4:
+                if library_err <= CUDNN_AGREE[dtype][0]:
                     with torch.no_grad():
-                        library_ms = cuda_ms(lambda: lstm(x_proj, (h0[None], c0[None])), reps)
+                        library_ms = cuda_ms(lambda: library(x_proj, state0), reps)
             bound, bound_by, w_step_ms = recurrence_bounds(
                 "k1", T, B, H, int(seq.sum()), dtype)
             rec = {
@@ -507,7 +535,9 @@ def train_kernel_phase(device, seed: int) -> list:
         tol = TRAIN_TOL[dtype]
         # the tp phase's model ranks: B / K = 8 and 4 rows of the training shape
         tp_shapes = [(TRAIN_SHAPE[0] // k, TRAIN_SHAPE[1]) for k in (2, 4)]
-        for B, T in shapes + (tp_shapes if dtype == torch.float32 else []):
+        # and in bf16 the benchmark tool's train step, with cuDNN in bf16 beside it
+        extra = tp_shapes if dtype == torch.float32 else [BENCH_TRAIN_SHAPE]
+        for B, T in shapes + extra:
             name = f"{str(dtype).replace('torch.', '')} B={B} T={T}"
             x_proj = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(device).to(dtype)
             c0 = (torch.randn(B, H, generator=gen) * 0.1).to(device)
@@ -573,8 +603,11 @@ def train_kernel_phase(device, seed: int) -> list:
 
             rec["bwd"]["with_dw_ms"] = cuda_ms(k4_and_dw, reps)
             rec["bwd"]["with_dw_vs_library"] = None
-            if lstm is not None:
-                cudnn_times(rec, lstm, x_proj, w_h, c0, h0, dout, dc_T, dh_T, reps)
+            library = lstm
+            if library is None and (B, T) == BENCH_TRAIN_SHAPE:
+                library = cudnn_lstm(w_h, H, device).to(dtype)
+            if library is not None:
+                cudnn_times(rec, library, x_proj, w_h, c0, h0, dout, dc_T, dh_T, reps)
                 for kind in ("fwd", "bwd"):
                     if rec[kind]["library_ms"]:
                         rec[kind]["vs_library"] = rec[kind]["ms"] / rec[kind]["library_ms"]
@@ -594,31 +627,33 @@ def cudnn_times(rec: dict, lstm, x_proj, w_h, c0, h0, dout, dc_T, dh_T, reps: in
     from stt_tpu_torch.ops.lstm_train import lstm_train_bwd, lstm_train_fwd
 
     T, B, _ = x_proj.shape
+    dtype = x_proj.dtype  # the LSTM's too
     full = torch.full((B,), T, dtype=torch.int32, device=x_proj.device)
     hs, cs, zs, c_T, h_T = lstm_train_fwd(x_proj, w_h, c0, h0, full)
     cs_prev = torch.cat([c0[None], cs[:-1]]).contiguous()
     dz, dc0, dh0 = lstm_train_bwd(zs, cs, cs_prev, dout, w_h, full, dc_T, dh_T)
     xr = x_proj.detach().clone().requires_grad_()
-    h0r = h0[None].detach().clone().requires_grad_()
-    c0r = c0[None].detach().clone().requires_grad_()
+    h0r = h0[None].to(dtype).detach().clone().requires_grad_()
+    c0r = c0[None].to(dtype).detach().clone().requires_grad_()
+    grads = [dout.to(dtype), dh_T[None].to(dtype), dc_T[None].to(dtype)]
     with torch.enable_grad():
         out, (hn, cn) = lstm(xr, (h0r, c0r))
-        torch.autograd.backward([out, hn, cn], [dout, dh_T[None], dc_T[None]], retain_graph=True)
-    fwd_err = max((out - hs).abs().max().item(), (cn[0] - c_T).abs().max().item(),
-                  (hn[0] - h_T).abs().max().item())
+        torch.autograd.backward([out, hn, cn], grads, retain_graph=True)
+    fwd_err = max((out.float() - hs).abs().max().item(), (cn[0].float() - c_T).abs().max().item(),
+                  (hn[0].float() - h_T).abs().max().item())
     # K4's gates come from bf16 z, cuDNN's from f32 z: ~1e-3 apart
-    bwd_err = max(((xr.grad - dz).abs().max() / dz.abs().max()).item(),
-                  ((c0r.grad[0] - dc0).abs().max() / dc0.abs().max()).item(),
-                  ((h0r.grad[0] - dh0).abs().max() / dh0.abs().max()).item())
+    bwd_err = max(((xr.grad.float() - dz).abs().max() / dz.abs().max()).item(),
+                  ((c0r.grad[0].float() - dc0).abs().max() / dc0.abs().max()).item(),
+                  ((h0r.grad[0].float() - dh0).abs().max() / dh0.abs().max()).item())
     rec["fwd"]["library_rel_err"] = fwd_err
     rec["bwd"]["library_rel_err"] = bwd_err
-    if fwd_err <= 1e-4:
+    fwd_agree, bwd_agree = CUDNN_AGREE[dtype]
+    if fwd_err <= fwd_agree:
         with torch.enable_grad():
             rec["fwd"]["library_ms"] = cuda_ms(lambda: lstm(xr, (h0r, c0r)), reps)
-    if bwd_err <= 2e-2:
+    if bwd_err <= bwd_agree:
         rec["bwd"]["library_ms"] = cuda_ms(
-            lambda: torch.autograd.backward([out, hn, cn], [dout, dh_T[None], dc_T[None]],
-                                            retain_graph=True), reps)
+            lambda: torch.autograd.backward([out, hn, cn], grads, retain_graph=True), reps)
 
 
 def k2_record(name: str, args: tuple, packed: torch.Tensor) -> dict:
@@ -2402,6 +2437,92 @@ def write_flac(path: str, audio: np.ndarray, rate: int, order=2, block: int = 40
         f.write(b"".join(out))
 
 
+SMOKE_TRANSCRIPT = "she had your dark suit in greasy wash water all year"
+SMOKE_SAMPLES = 46797  # LDC93S1's length: a 93,638-byte WAV, as the scripts' CSVs say
+RU_TRANSCRIPT = "бедняга ребят на его месте должен был быть я"
+RU_SECONDS = 4.0
+SMOKE_OGG = os.path.join(ROOT, "tests", "fixtures", "LDC93S1.ogg")  # spoken(SMOKE_TRANSCRIPT, ...)
+SMOKE_LM_SENTENCES = 1000
+
+
+def spoken(text: str, rate: int, samples: int) -> np.ndarray:
+    """A learnable stand-in for a recording of `text`: after 0.1 s of
+    quiet, one 85%-voiced segment per character, all of equal length, a
+    tone with two harmonics whose pitch is set by the character's class
+    (its rank among the text's distinct characters); a space is a pause.
+    Faint noise throughout, from a fixed seed, so the same text gives the
+    same samples."""
+    classes = {c: i for i, c in enumerate(sorted(set(text) - {" "}))}
+    lead = int(0.1 * rate)
+    per = (samples - 2 * lead) // len(text)
+    voiced = int(per * 0.85)
+    audio = 0.003 * np.random.RandomState(0).randn(samples)
+    t = np.arange(voiced) / rate
+    ramp = np.arange(voiced)
+    fade = np.minimum(1.0, np.minimum(ramp, ramp[::-1]) / (0.005 * rate))
+    for i, c in enumerate(text):
+        if c == " ":
+            continue
+        f0 = 140.0 * 2 ** (classes[c] / 8)
+        tone = sum(a * np.sin(2 * np.pi * f0 * m * t) for m, a in ((1, 0.5), (2, 0.25), (3, 0.12)))
+        start = lead + i * per
+        audio[start:start + voiced] += tone * fade
+    return np.clip(audio, -1, 1).astype(np.float32)
+
+
+def write_smoke_set(root: str, seed: int) -> dict:
+    """The reference's data/ layout for the port's bin/ scripts, with
+    learnable stand-ins for its recordings: root/alphabet.txt (LABELS) and
+    root/smoke_test/ with LDC93S1.wav/.txt and ldc93s1.csv (the sentence
+    spoken by `spoken`, 46,797 samples as the original), ldc93s1_flac.csv
+    (a FLAC by write_flac), ldc93s1_vorbis.csv (the committed
+    tests/fixtures/LDC93S1.ogg, the same utterance: the card's host may
+    lack libvorbisenc), pruned_lm.scorer (a 3-gram of seeded sentences over
+    LM_WORDS and the smoke sentence, built by the port's LM tools as
+    build_scorers builds one) and russian_sample_data/ru.csv (its Cyrillic
+    sentence spoken the same way, 4 s). Returns {"smoke": dir, "alphabet":
+    path}."""
+    from stt_tpu_torch.data.audio import write_wav
+    from stt_tpu_torch.lm.arpa import estimate_kneser_ney_lmplz, write_arpa
+    from stt_tpu_torch.tools.generate_scorer_package import create_package
+
+    rate = 16000
+    smoke = os.path.join(root, "smoke_test")
+    ru_dir = os.path.join(smoke, "russian_sample_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(ru_dir)
+    alphabet = os.path.join(root, "alphabet.txt")
+    with open(alphabet, "w") as f:
+        f.write("".join(f"{c}\n" for c in LABELS))
+    audio = spoken(SMOKE_TRANSCRIPT, rate, SMOKE_SAMPLES)
+    write_wav(os.path.join(smoke, "LDC93S1.wav"), audio, rate)
+    write_flac(os.path.join(smoke, "LDC93S1.flac"), audio, rate)
+    shutil.copy(SMOKE_OGG, os.path.join(smoke, "LDC93S1.ogg"))
+    with open(os.path.join(smoke, "LDC93S1.txt"), "w") as f:
+        f.write(f"0 {SMOKE_SAMPLES} {SMOKE_TRANSCRIPT.capitalize()}.\n")
+    for csv, name in (("ldc93s1.csv", "LDC93S1.wav"), ("ldc93s1_flac.csv", "LDC93S1.flac"),
+                      ("ldc93s1_vorbis.csv", "LDC93S1.ogg")):
+        size = os.path.getsize(os.path.join(smoke, name))
+        with open(os.path.join(smoke, csv), "w") as f:
+            f.write(f"wav_filename,wav_filesize,transcript\n{name},{size},{SMOKE_TRANSCRIPT}\n")
+    write_wav(os.path.join(ru_dir, "ru.wav"), spoken(RU_TRANSCRIPT, rate, int(RU_SECONDS * rate)),
+              rate)
+    with open(os.path.join(ru_dir, "ru.csv"), "w", encoding="utf-8") as f:
+        size = os.path.getsize(os.path.join(ru_dir, "ru.wav"))
+        f.write(f"wav_filename,wav_filesize,transcript\nru.wav,{size},{RU_TRANSCRIPT}\n")
+    rs = np.random.RandomState(seed)
+    weights = 1.0 / np.arange(1, len(LM_WORDS) + 1)
+    sentences = [list(rs.choice(LM_WORDS, size=rs.randint(3, 13), p=weights / weights.sum()))
+                 for _ in range(SMOKE_LM_SENTENCES)] + [SMOKE_TRANSCRIPT.split()] * 10
+    vocab, arpa = (os.path.join(root, f"lm.{ext}") for ext in ("vocab", "arpa"))
+    with open(vocab, "w") as f:
+        f.write("\n".join(sorted({w for s in sentences for w in s})) + "\n")
+    write_arpa(estimate_kneser_ney_lmplz(sentences, order=LM_ORDER, discount_fallback=True), arpa)
+    create_package(alphabet, arpa, vocab, os.path.join(smoke, "pruned_lm.scorer"), LM_ALPHA,
+                   LM_BETA)
+    return {"smoke": smoke, "alphabet": alphabet}
+
+
 def write_dataset(data_dir: str, rng: np.random.RandomState, rate: int) -> dict:
     """Seeded utterances of 2-5 s with random transcripts over the 28
     labels: 32 for training, 8 for dev, as CSVs of WAV files."""
@@ -4136,6 +4257,175 @@ def import_phase(device, seed: int, work_dir: str, card: str) -> dict:
             "evaluate": evaluated, "launches": totals, "gpu": card}
 
 
+SCRIPTS_DIR = os.path.join(ROOT, "stt_tpu_torch", "bin")
+# the scripts run in two lanes side by side, each lane's in order: the fused
+# script trains the endurance script's alignment checkpoint, and that lane
+# is the phase's length (on an H100, run alone, 154 + 175 s; the other
+# lane's five 296 s; beside two other lanes it took 370-441 s)
+SCRIPT_LANES = (
+    ("run-ci-ldc93s1_fused.sh", "run-flagship-endurance.sh"),
+    ("run-ci-ldc93s1_new.sh", "run-ldc93s1.sh", "run-ci-ldc93s1_checkpoint.sh",
+     "run-ci-ldc93s1_audio_formats.sh", "run-ci-multihost.sh"),
+)
+SCRIPT_KERNELS = {  # the kernels each script's commands must launch on the card
+    "run-ci-ldc93s1_fused.sh": ("k1", "k3", "k4"),  # training (dev passes K1), evaluate
+    "run-flagship-endurance.sh": ("k1", "k3", "k4"),
+    "run-ci-ldc93s1_new.sh": ("k1", "k3", "k4"),
+    "run-ldc93s1.sh": ("k1", "k3", "k4"),
+    "run-ci-ldc93s1_checkpoint.sh": ("k1", "k3", "k4"),
+    "run-ci-ldc93s1_audio_formats.sh": ("k3", "k4"),
+    "run-ci-multihost.sh": ("k3", "k4"),
+}
+# the endurance script at its own epochs=1 and a short Russian leg
+ENDURANCE_EPOCHS, ENDURANCE_RU_EPOCHS = 1, 5
+SCRIPT_TIMEOUT_S = 480  # each script's own limit; its process group is killed past it
+SCRIPT_THREADS = 2  # each script process's CPU threads (OMP_NUM_THREADS)
+SCRIPT_GATES = (  # lines of a script's log that show its gates and results
+    "decoded: ", " OK", "WER: ", "transcript", "aligned words:", "Wrote ", "wrote ")
+
+
+def run_script(name: str, env: dict, work_dir: str, card: str) -> dict:
+    """`sh stt_tpu_torch/bin/<name>` from the root of the checkout with
+    `env` added, its output in work_dir/<name>.log, its processes' kernel
+    launches counted through launch_log's file. Kills the script's process
+    group when it ends or passes SCRIPT_TIMEOUT_S."""
+    from stt_tpu_torch.ops import launch_log
+
+    log, counts = (os.path.join(work_dir, name + ext) for ext in (".log", ".launches"))
+    if os.path.exists(counts):
+        os.remove(counts)
+    start = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(["sh", os.path.join(SCRIPTS_DIR, name)], cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT, start_new_session=True,
+                                env={**os.environ, **env, launch_log.ENV: counts})
+        try:
+            rc = proc.wait(timeout=SCRIPT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    wall_s = time.perf_counter() - start
+    with open(log, errors="replace") as f:
+        lines = f.read().splitlines()
+    shown = [line for line in lines if not line.startswith("+") and any(g in line for g in SCRIPT_GATES)]
+    epochs = [line for line in lines if "| train loss " in line]
+    return {"script": name, "rc": rc, "wall_s": wall_s, "launches": launch_log.read(counts),
+            "lines": shown[:6] + (["..."] + shown[-6:] if len(shown) > 12 else shown[6:]),
+            "epoch_lines": len(epochs), "last_epoch": epochs[-1] if epochs else None,
+            "log": os.path.relpath(log, ROOT), "tail": lines[-15:], "gpu": card}
+
+
+def scripts_phase(device, seed: int, work_dir: str, card: str) -> dict:
+    """The port's scripts, as a user runs them, on the card:
+    - the benchmark tool at its defaults (`tools.benchmark.main([])`: K1 in
+      bf16 at B 128, T 500; the 2048 stream at beam 64 through K1; a bf16
+      train step at B 64, T 500 through K3 and K4), in this process: its
+      three records;
+    - the stream latency probe (`tools.probe_stream_latency`: K5 over 500
+      frames in chunks of 16 against the host decoder): both times, and the
+      transcripts must be equal;
+    - every stt_tpu_torch/bin/ script through `sh`, two lanes side by side
+      (SCRIPT_LANES), with smoke=, alphabet= and work= (or run-ldc93s1.sh's
+      own variables) on a `write_smoke_set` tree, device=cuda, and the
+      endurance script at epochs=1, ru_epochs=5 with the fused script's
+      checkpoint for its alignment. Each must exit 0 with its gates as
+      written (the exact transcript of run-ci-ldc93s1_new.sh and _fused.sh,
+      make_spliced_corpus's alignment assert, the checkpoint files, the
+      multihost losses' cmp), and its processes must launch the kernels of
+      SCRIPT_KERNELS (counted by STT_TORCH_LAUNCH_LOG, since the wrappers'
+      counts live in the child processes).
+    `python` on the scripts' PATH is this interpreter. Prints each script's
+    wall, exit code, launches and result lines, the records and the probe's
+    lines, beside the card's name and power limit."""
+    from stt_tpu_torch.tools import benchmark, probe_stream_latency
+
+    shutil.rmtree(work_dir, ignore_errors=True)
+    os.makedirs(work_dir)
+    start = time.perf_counter()
+    data = write_smoke_set(os.path.join(work_dir, "data"), seed)
+    bin_dir = os.path.join(work_dir, "bin")
+    os.makedirs(bin_dir)
+    with open(os.path.join(bin_dir, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bin_dir, "python"), 0o755)
+    print(f"scripts: smoke set written in {time.perf_counter() - start:.1f} s; gpu: {card}",
+          flush=True)
+
+    records, bench_ms, bench_launches = run_counted(
+        "scripts: benchmark", lambda: benchmark.main([]), ("k1", "k3", "k4"))
+    bench = {"records": records, "wall_ms": bench_ms, "launches": bench_launches, "gpu": card}
+    print("scripts benchmark", json.dumps(bench), flush=True)
+    probe, probe_ms, probe_launches = run_counted(
+        "scripts: probe", lambda: probe_stream_latency.main(["--alphabet", data["alphabet"]]),
+        ("k5",))
+    probe = {**probe, "wall_ms": probe_ms, "launches": probe_launches, "gpu": card}
+    print("scripts probe", json.dumps(probe), flush=True)
+    failures = [] if probe["transcripts_equal"] else ["probe: the transcripts differ"]
+
+    w = lambda name: os.path.join(work_dir, name)  # noqa: E731
+    # the lanes (three processes with the multihost ranks) share the host's
+    # cores: two CPU threads each rather than one per core each
+    common = {"PATH": bin_dir + os.pathsep + os.environ.get("PATH", ""), "device": "cuda",
+              "smoke": data["smoke"], "alphabet": data["alphabet"],
+              "OMP_NUM_THREADS": str(SCRIPT_THREADS)}
+    envs = {
+        "run-ci-ldc93s1_fused.sh": {"work": w("fused")},
+        "run-flagship-endurance.sh": {"work": w("flagship"), "align_ckpt": w("fused/ckpt"),
+                                      "epochs": str(ENDURANCE_EPOCHS),
+                                      "ru_epochs": str(ENDURANCE_RU_EPOCHS)},
+        "run-ci-ldc93s1_new.sh": {"work": w("new")},
+        "run-ldc93s1.sh": {"ldc93s1_dir": w("ldc93s1/data"), "ckpt_dir": w("ldc93s1/ckpt"),
+                           "export_dir": w("ldc93s1/model"), "smoke_src": data["smoke"]},
+        "run-ci-ldc93s1_checkpoint.sh": {"work": w("checkpoint")},
+        "run-ci-ldc93s1_audio_formats.sh": {"work": w("formats")},
+        "run-ci-multihost.sh": {"work": w("multihost"), "port": str(free_port())},
+    }
+    results = {}
+
+    def lane(names):
+        for name in names:
+            results[name] = run_script(name, {**common, **envs[name]}, work_dir, card)
+            if results[name]["rc"] != 0:
+                return  # the phase fails; the endurance script needs the fused one's checkpoint
+
+    torch.cuda.empty_cache()  # the benchmark's cached blocks, for the scripts' processes
+    lanes_start = time.perf_counter()
+    threads = [threading.Thread(target=lane, args=(names,)) for names in SCRIPT_LANES]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    lanes_s = time.perf_counter() - lanes_start
+    for names in SCRIPT_LANES:
+        for name in names:
+            if name not in results:
+                failures.append(f"{name}: not run, an earlier script of its lane failed")
+                continue
+            rec = results[name]
+            print("scripts run", json.dumps({k: v for k, v in rec.items() if k != "tail"}),
+                  flush=True)
+            missing = [k for k in SCRIPT_KERNELS[name] if not rec["launches"][k]]
+            if rec["rc"] != 0:
+                failures.append(f"{name}: exit {rec['rc']}, log {rec['log']}:\n"
+                                + "\n".join(rec["tail"]))
+            elif missing:
+                failures.append(f"{name}: launched no {missing}: {rec['launches']}")
+    totals = {k: bench_launches[k] + probe_launches[k]
+              + sum(r["launches"][k] for r in results.values()) for k in bench_launches}
+    wall_s = time.perf_counter() - start
+    print(f"scripts: launches {json.dumps(totals)}; the scripts' lanes {lanes_s:.1f} s; "
+          f"the phase {wall_s:.1f} s; gpu: {card}", flush=True)
+    if failures:
+        raise AssertionError("scripts phase: " + "\n".join(failures))
+    return {"benchmark": bench, "probe": probe, "scripts": results, "launches": totals,
+            "lanes_s": lanes_s, "wall_s": wall_s, "gpu": card}
+
+
 def build_native_decoder(out: dict) -> None:
     """Build (g++) and load the port's native CTC decoder, then build (g++,
     gcc) the C API's library and stt_client, and (g++ -pg) the decoder's
@@ -4170,7 +4460,8 @@ def main() -> int:
                              "its source")
     parser.add_argument("--phases", default="",
                         help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation, "
-                             "input, pool, augment, parallel, tp, entry, capi, compat, import) to "
+                             "input, pool, augment, parallel, tp, entry, capi, compat, import, "
+                             "scripts) to "
                              "run alone "
                              "(evaluation and entry train their checkpoint first), for work on "
                              "a kernel, the host decoder or a module: prints their records and "
@@ -4220,8 +4511,9 @@ def main() -> int:
     if args.phases:
         alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase}
         for name in args.phases.split(","):
-            if name in ("input", "import"):
-                phase = input_phase if name == "input" else import_phase
+            if name in ("input", "import", "scripts"):
+                phase = {"input": input_phase, "import": import_phase,
+                         "scripts": scripts_phase}[name]
                 phase(device, args.seed, os.path.join(work_dir, name), card)
                 continue
             if name == "decoder":
@@ -4274,6 +4566,7 @@ def main() -> int:
     capi = capi_phase(device, args.seed, os.path.join(work_dir, "capi"), scorers, card)
     compat = compat_phase(device, args.seed, os.path.join(work_dir, "compat"), card)
     imported = import_phase(device, args.seed, os.path.join(work_dir, "import"), card)
+    scripts = scripts_phase(device, args.seed, os.path.join(work_dir, "scripts"), card)
 
     # K1 at the serving path's stream shape: batch 1, 16 steps, f32
     main_shape = next(r for r in k1 if (r["dtype"], r["B"], r["T"]) == ("float32", 1, 16))
@@ -4286,7 +4579,8 @@ def main() -> int:
                      + training["launches"]["k1"] + evaluation["launches"]["k1"]
                      + pool["launches"]["k1"] + parallel["launches"]["k1"] + one_rank["k1"]
                      + tp["launches"]["k1"] + entry["launches"]["k1"] + capi["launches"]["k1"]
-                     + compat["launches"]["k1"] + imported["launches"]["k1"]),
+                     + compat["launches"]["k1"] + imported["launches"]["k1"]
+                     + scripts["launches"]["k1"]),
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -4306,7 +4600,8 @@ def main() -> int:
             "replaces": f"stt_tpu/ops/lstm_train.py:{line}",
             "launches": (training["launches"][key] + inputs["launches"][key]
                          + augment["launches"][key] + parallel["launches"][key] + one_rank[key]
-                         + tp["launches"][key] + imported["launches"][key]),
+                         + tp["launches"][key] + imported["launches"][key]
+                         + scripts["launches"][key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4331,7 +4626,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": (sum(r["launches"][key] for r in serving["requests"])
                          + evaluation["launches"][key] + pool["launches"].get(key, 0)
-                         + entry["launches"][key] + imported["launches"][key]),
+                         + entry["launches"][key] + imported["launches"][key]
+                         + scripts["launches"][key]),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4347,7 +4643,8 @@ def main() -> int:
                        "serving": serving, "decoder": decoder, "training": training,
                        "evaluation": evaluation, "input": inputs, "pool": pool,
                        "augment": augment, "parallel": parallel, "tp": tp, "entry": entry,
-                       "capi": capi, "compat": compat, "import": imported, "kernels": kernels},
+                       "capi": capi, "compat": compat, "import": imported, "scripts": scripts,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(f"gpu: {card}")

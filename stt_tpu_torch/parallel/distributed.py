@@ -4,8 +4,9 @@
 - `initialize` joins the process group over tcp://coordinator_address
   with world size num_processes and rank process_id. The collectives'
   backend follows the ranks' device, gloo for the CPU and NCCL for CUDA;
-  `backend` lets a caller choose (gloo for two ranks on one card, which
-  NCCL refuses).
+  `backend`, or for a command line the environment variable
+  STT_TORCH_DIST_BACKEND, lets a caller choose (gloo for two ranks on one
+  card, which NCCL refuses).
 - each rank feeds only its rows of every global batch (`host_batch_bounds`,
   `create_batches(row_range=...)`), re-padded to the global batch's time
   and label lengths (`agree_global_padding`); the train step all-reduces
@@ -27,6 +28,7 @@ All-reduces take the tensor where it lies under either backend.
 from __future__ import annotations
 
 import datetime
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 TIMEOUT = datetime.timedelta(minutes=30)  # a collective waiting on a rank that is gone
+BACKEND_ENV = "STT_TORCH_DIST_BACKEND"  # the backend of a group the caller names none for
 
 
 def initialize(
@@ -54,7 +57,8 @@ def initialize(
             raise ValueError("several processes need --coordinator_address host:port and "
                              "--process_id (or RANK)")
         if backend is None:
-            backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+            backend = os.environ.get(BACKEND_ENV) or (
+                "nccl" if torch.device(device).type == "cuda" else "gloo")
         if backend == "nccl":
             torch.cuda.set_device(local_device(device, process_id))
         dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",

@@ -149,7 +149,6 @@ def train(config: SttConfig, device="cuda") -> TrainState:
     proc_id, proc_count = distributed.process_index(), distributed.process_count()
     is_coordinator = proc_id == 0
     device = distributed.local_device(resolve_device(device))
-    log = log_info if is_coordinator else (lambda *args: None)
     early_training_checks(config)
     alphabet = config.resolve_alphabet()
     model_config = config.model_config(training=True)
@@ -179,11 +178,11 @@ def train(config: SttConfig, device="cuda") -> TrainState:
             CheckpointManager(config.load_checkpoint_dir, config.max_to_keep), state,
             load_train=config.load_train, drop_source_layers=config.drop_source_layers,
         )
-    log(f"Initialized model from '{method}'")
+    log_info(f"Initialized model from '{method}'")
     if method != "init" and config.force_initialize_learning_rate:
         set_learning_rate(state, config.learning_rate)
-        log(f"Re-initialized learning rate to {config.learning_rate} "
-            "(--force_initialize_learning_rate)")
+        log_info(f"Re-initialized learning rate to {config.learning_rate} "
+                 "(--force_initialize_learning_rate)")
 
     if tensor_parallel:
         state = shard_train_state(state, mesh)
@@ -292,7 +291,7 @@ def train(config: SttConfig, device="cuda") -> TrainState:
         for batch, _ in batches(0, reverse=True, limit=probe_limit):
             state, _ = train_step(state, batch, step_seed)
             break
-        log("Dummy run (longest samples) OK: no out-of-memory")
+        log_info("Dummy run (longest samples) OK: no out-of-memory")
 
     best_dev_loss = manager.best_dev_loss() if manager else float("inf")
     epochs_without_improvement = 0
@@ -303,7 +302,7 @@ def train(config: SttConfig, device="cuda") -> TrainState:
     profiler = None
     for epoch in range(config.epochs):
         if feature_cache is not None and feature_cache.maybe_invalidate(epoch):
-            log(f"Feature cache invalidated at epoch {epoch} "
+            log_info(f"Feature cache invalidated at epoch {epoch} "
                      f"(--cache_for_epochs {config.cache_for_epochs})")
         epoch_losses: List[float] = []
         epoch_audio_s = 0.0
@@ -371,7 +370,7 @@ def train(config: SttConfig, device="cuda") -> TrainState:
             msg += f" | metrics[{name}] loss {m_loss:.4f}"
             if summary_writer is not None:
                 summary_writer(state.step, {f"metrics/{name}_loss": m_loss})
-        log(msg)
+        log_info(msg)
 
         # the merged dev loss is the same on every rank, so are these decisions
         if dev_loss is not None:
@@ -386,7 +385,7 @@ def train(config: SttConfig, device="cuda") -> TrainState:
         last_save = time.time()
 
         if config.early_stop and epochs_without_improvement >= config.es_epochs:
-            log(f"Early stop triggered: dev loss has not improved by more than "
+            log_info(f"Early stop triggered: dev loss has not improved by more than "
                      f"{config.es_min_delta} in {config.es_epochs} epochs")
             break
 
@@ -403,7 +402,7 @@ def train(config: SttConfig, device="cuda") -> TrainState:
                 pass
             new_lr = get_learning_rate(state) * config.plateau_reduction
             set_learning_rate(state, new_lr)
-            log(f"Plateau: reloaded best checkpoint, reduced LR to {new_lr}")
+            log_info(f"Plateau: reloaded best checkpoint, reduced LR to {new_lr}")
 
     final = full_state()
     if saver is not None:

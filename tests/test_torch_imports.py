@@ -68,11 +68,16 @@ def test_every_module_imports_without_jax_or_stt_tpu():
             "tools.enumerate_kenlm_vocabulary", "tools.trie_load", "tools.data_set_tool",
             "tools.check_characters", "tools.compare_samples", "tools.stats", "tools.play")}
         assert m15 <= set(names), m15 - set(names)
+        scripts = {"stt_tpu_torch." + m for m in (
+            "tools.benchmark", "tools.probe_stream_latency", "tools.reference_decoder_oracle",
+            "bin", "bin.make_spliced_corpus", "ops.launch_log")}
+        assert scripts <= set(names), scripts - set(names)
+        assert "bench" not in sys.modules, "the repository's bench.py is imported"
         assert "tensorflow" not in sys.modules, "TensorFlow is imported by a call, not on import"
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 94
+    assert int(proc.stdout.strip()) >= 100
 
 
 def test_no_import_statement_names_jax_or_stt_tpu():
@@ -91,6 +96,36 @@ def test_no_import_statement_names_jax_or_stt_tpu():
                 continue
             for mod in mods:
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "stt_tpu"), (path, mod)
+
+
+def test_scripts_and_tools_name_nothing_of_stt_tpu_jax_or_bench():
+    """The port's scripts (stt_tpu_torch/bin/*.sh, make_spliced_corpus.py)
+    and its benchmark, probe and oracle tools name no stt_tpu module, no
+    JAX and not the repository's bench.py; the shell scripts run only
+    `python -m stt_tpu_torch.` modules, inline `python -` / `python -c`
+    code, and files under stt_tpu_torch/."""
+    import re
+
+    bin_dir = os.path.join(ROOT, "stt_tpu_torch", "bin")
+    scripts = sorted(n for n in os.listdir(bin_dir) if n.endswith(".sh"))
+    assert len(scripts) == 7, scripts
+    files = [os.path.join(bin_dir, n) for n in scripts + ["make_spliced_corpus.py"]] + [
+        os.path.join(ROOT, "stt_tpu_torch", "tools", n) for n in (
+            "benchmark.py", "probe_stream_latency.py", "reference_decoder_oracle.py",
+            "oracle_main.cpp")]
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        assert not re.search(r"\bstt_tpu\.\w", text.replace("stt_tpu_torch", "")), path
+        assert not re.search(r"\bjax\b|JAX_PLATFORMS|XLA_FLAGS", text), path
+        assert not re.search(r"import bench\b|from bench\b|benchmod|bench\.speechlike", text), path
+        if path.endswith(".sh"):
+            for call in re.findall(r"\bpython3?\b[^\n]*", text):
+                assert re.match(r"python (-m stt_tpu_torch\.\w|-c |- |stt_tpu_torch/)", call), (
+                    path, call)
+            for call in re.findall(r"\bsh (\S+)", text):
+                assert call.startswith("stt_tpu_torch/bin/"), (path, call)
+            assert 'device="${device:-cuda}"' in text, path
 
 
 def test_native_decoder_builds_under_build_native_and_loads_nothing_of_stt_tpu():

@@ -33,7 +33,7 @@ MODES = {"host": {"device_prune": False, "device_decode": False},
 
 
 @pytest.fixture(scope="module")
-def models(tmp_path_factory):
+def artifact(tmp_path_factory):
     alphabet = JaxAlphabet().init_from_labels(LABELS)
     config = JaxModelConfig(n_hidden=48, n_cell_dim=48, n_out=len(LABELS) + 1,
                             dropout_rates=(0.0,) * 6)
@@ -43,8 +43,12 @@ def models(tmp_path_factory):
     params["layer_6"]["b"] = (np.random.RandomState(1).randn(len(LABELS) + 1) * 3).astype(np.float32)
     params["layer_6"]["w"] = params["layer_6"]["w"] * 20.0
     meta = build_metadata(config, JaxFeatureConfig(), alphabet, beam_width=BEAM)
-    path = save_artifact(str(tmp_path_factory.mktemp("pool") / "m"), params, meta, alphabet)
-    return Model(path, device="cpu"), JaxModel(path)
+    return save_artifact(str(tmp_path_factory.mktemp("pool") / "m"), params, meta, alphabet)
+
+
+@pytest.fixture(scope="module")
+def models(artifact):
+    return Model(artifact, device="cpu"), JaxModel(artifact)
 
 
 def speech_like(seed, seconds):
@@ -230,3 +234,74 @@ def test_device_decode_slots_use_the_device_decoder(models):
     assert pool.device_decode and not pool.device_prune
     auto = StreamPool(model, max_streams=2)
     assert not auto.device_decode and not auto.device_prune  # 29 classes: no pruning
+
+
+PIECE = 2777  # samples a feed: no multiple of the chunk, the step or the window
+SCORED_CONF_TOL = 1e-3  # with the scorer's and int8's terms (ROADMAP §3's probe)
+
+
+def pooled_pieces(model, audios, kwargs):
+    """A 3-slot pool, three streams fed in PIECE-sample pieces in turn with
+    an intermediate decode of each after every piece; returns the
+    intermediate transcripts and each stream's final metadata (3
+    candidates)."""
+    pool = (StreamPool if isinstance(model, Model) else JaxStreamPool)(model, max_streams=3,
+                                                                       **kwargs)
+    streams = [pool.create_stream() for _ in audios]
+    seen = []
+    for start in range(0, max(len(a) for a in audios), PIECE):
+        for stream, audio in zip(streams, audios):
+            if start < len(audio):
+                stream.feed_audio_content(audio[start:start + PIECE])
+                seen.append(stream.intermediate_decode())
+    return seen, [s.finish_stream_with_metadata(3) for s in streams]
+
+
+@pytest.fixture(scope="module")
+def scorer_path(tmp_path_factory):
+    """A 3-gram .scorer package of seeded sentences over chip_smoke's words,
+    built by the port's LM tools."""
+    import os
+    import sys
+
+    from stt_tpu_torch.lm.arpa import estimate_kneser_ney_lmplz, write_arpa
+    from stt_tpu_torch.tools.generate_scorer_package import create_package
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import LM_WORDS
+
+    root = tmp_path_factory.mktemp("pool_scorer")
+    rs = np.random.RandomState(5)
+    sentences = [list(rs.choice(LM_WORDS, size=rs.randint(3, 10))) for _ in range(300)]
+    alphabet, vocab, arpa = (str(root / name) for name in ("alphabet.txt", "vocab.txt", "lm.arpa"))
+    with open(alphabet, "w") as f:
+        f.write("".join(f"{c}\n" for c in LABELS))
+    with open(vocab, "w") as f:
+        f.write("\n".join(sorted({w for s in sentences for w in s})) + "\n")
+    write_arpa(estimate_kneser_ney_lmplz(sentences, order=3, discount_fallback=True), arpa)
+    return create_package(alphabet, arpa, vocab, str(root / "lm.scorer"), 0.93, 1.18)
+
+
+@pytest.mark.parametrize("mode", ["host", "device_prune"])
+@pytest.mark.parametrize("kind", ["scorer_hot_words", "int8"])
+def test_pool_with_scorer_or_int8_equals_stt_tpu(artifact, scorer_path, kind, mode):
+    """The re-anchor's probe as a test: three streams through a 3-slot pool
+    with a scorer and hot words, or with quantized_inference=True, against
+    stt_tpu's pool on the same artifact: intermediate and final transcripts
+    and timesteps equal, confidences within 1e-3."""
+    quantized = kind == "int8"
+    model = Model(artifact, quantized_inference=quantized, device="cpu")
+    jax_model = JaxModel(artifact, quantized_inference=quantized)
+    if not quantized:
+        for m in (model, jax_model):
+            m.enable_external_scorer(scorer_path)
+            for word, boost in (("water", 2.0), ("the", -0.5), ("year", 1.0)):
+                m.add_hot_word(word, boost)
+    audios = [speech_like(30 + i, s) for i, s in enumerate((2.4, 1.7, 3.1))]
+    seen, metas = pooled_pieces(model, audios, MODES[mode])
+    jax_seen, jax_metas = pooled_pieces(jax_model, audios, MODES[mode])
+    assert len(seen) == len(jax_seen) >= 3 * 6
+    assert seen == jax_seen
+    assert any(meta.transcripts[0].transcript for meta in metas)
+    for got, want in zip(metas, jax_metas):
+        assert_same_metadata(got, want, tol=SCORED_CONF_TOL)
