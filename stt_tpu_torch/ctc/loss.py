@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from stt_tpu_torch import trace
+
 _NEG_INF = -1e30  # finite stand-in for log(0): keeps gradients NaN-free
 
 
@@ -47,6 +49,23 @@ def ctc_loss(
     logits [B, T, C] raw (pre-softmax), blank = C - 1; logit_lengths [B]
     valid frames; labels [B, L] integer, padded past label_lengths (the
     padding value is masked out); label_lengths [B]. Returns [B] float32."""
+    with trace.span("ctc.loss", device=True):
+        losses = _ctc_loss(logits, logit_lengths, labels, label_lengths)
+    if trace.enabled() and losses.requires_grad and logits.requires_grad:
+        _trace_backward(logits, losses)
+    return losses
+
+
+def _trace_backward(logits: torch.Tensor, losses: torch.Tensor) -> None:
+    """The span `ctc.loss.bwd` over the loss's backward: it opens at the
+    gradient of `losses` and closes at that of `logits`, once every node of
+    the loss has run."""
+    opened = []
+    losses.register_hook(lambda grad: opened.append(trace.begin("ctc.loss.bwd", device=True)))
+    logits.register_hook(lambda grad: opened.pop().close() if opened else None)
+
+
+def _ctc_loss(logits, logit_lengths, labels, label_lengths) -> torch.Tensor:
     batch, t_max, n_class = logits.shape
     device = logits.device
     blank = n_class - 1

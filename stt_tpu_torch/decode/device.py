@@ -49,6 +49,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from stt_tpu_torch import trace
 from stt_tpu_torch.alphabet import Alphabet
 from stt_tpu_torch.decode.beam import DecodeResult, make_decoder_state
 from stt_tpu_torch.device import resolve_device
@@ -685,7 +686,9 @@ def device_beam_search(
         probs.contiguous(), lens.to(probs.device), int(beam_width), int(cutoff_top_n),
         float(cutoff_prob), None if blank_id is None else int(blank_id), ignored_symbols,
     )
-    src, char = _host_backpointers(bp)
+    bp = tuple(p.cpu() for p in bp) if isinstance(bp, tuple) else bp.cpu()
+    with trace.span("decode.unpack"):
+        src, char = _host_backpointers(bp)
     return scores.cpu().numpy(), src, char
 
 
@@ -767,7 +770,8 @@ def ctc_beam_search_decoder_device(
         batch, np.asarray(seq_lengths, np.int32), beam_size, cutoff_top_n,
         cutoff_prob, blank_id=blank_id, ignored_symbols=ignored_symbols, device=device,
     )
-    return [
-        rebuild_results(scores[i], src[i], char[i], alphabet, num_results)
-        for i in range(B)
-    ]
+    with trace.span("decode.rebuild"):
+        return [
+            rebuild_results(scores[i], src[i], char[i], alphabet, num_results)
+            for i in range(B)
+        ]

@@ -9,8 +9,8 @@ decode of `--device_decode`:
   prune  ctc_beam_search_decoder_batch_pruned (auto = prune);
   full   without a scorer, ctc_beam_search_decoder_device: the beam kernel
          K5 at --export_beam_width; with one, as prune.
-The decode timer starts after a CUDA synchronize, so the logged decode
-throughput holds no forward time.
+The decode timer does not wait for the card: it holds the decode and
+whatever of the batch's forward is still in flight when the decode starts.
 
 With several processes (`--num_processes`, joined by the command line's
 `config.maybe_initialize_distributed`) each rank takes every
@@ -32,6 +32,7 @@ from typing import List, Optional
 
 import torch
 
+from stt_tpu_torch import trace
 from stt_tpu_torch.config import SttConfig, initialize_globals_from_cli, log_info
 from stt_tpu_torch.data.feeding import create_batches
 from stt_tpu_torch.decode import ctc_beam_search_decoder_batch
@@ -75,10 +76,11 @@ def decode_batch(config: SttConfig, probs: torch.Tensor, lengths: List[int], alp
     if mode == "full" and scorer is None:
         # the whole per-frame expansion and prune on the device; the host
         # only walks the backpointers
-        return ctc_beam_search_decoder_device(
-            probs, lengths, alphabet, beam_size=config.export_beam_width,
-            cutoff_prob=config.cutoff_prob, cutoff_top_n=config.cutoff_top_n,
-        )
+        with trace.span("decode.batch"):
+            return ctc_beam_search_decoder_device(
+                probs, lengths, alphabet, beam_size=config.export_beam_width,
+                cutoff_prob=config.cutoff_prob, cutoff_top_n=config.cutoff_top_n,
+            )
     if mode in ("prune", "full"):
         # emission pruning on the device, beam and LM on the host
         return ctc_beam_search_decoder_batch_pruned(
@@ -129,8 +131,6 @@ def evaluate(
             lengths = batch.feature_lengths.tolist()
             losses, logits = eval_step(model, batch.to(device))
             probs = torch.softmax(logits, dim=-1)  # stays on the device
-            if probs.is_cuda:
-                torch.cuda.synchronize()  # the decode timer holds no forward time
             decode_t0 = time.time()
             decoded = decode_batch(config, probs, lengths, alphabet, scorer)
             decode_walls.append(time.time() - decode_t0)
@@ -167,26 +167,16 @@ def evaluate(
 
 def decode_throughput(test_csv: str, config: SttConfig, decode_walls: List[float],
                       decode_audio_s: float) -> str:
-    """stt_tpu's decode-throughput log line; the steady state leaves out the
-    slowest batch, which carries the first call's set-up."""
+    """stt_tpu's decode-throughput log line, over every batch: each batch's
+    time holds its decode and the forward work still in flight."""
     decode_wall = sum(decode_walls)
-    steady = decode_wall - (max(decode_walls) if len(decode_walls) > 1 else 0.0)
-    steady_audio = decode_audio_s * (
-        1.0 - 1.0 / len(decode_walls)
-    ) if len(decode_walls) > 1 else decode_audio_s
-    msg = (
+    return (
         f"Decode throughput on {test_csv}: "
         f"{decode_audio_s / decode_wall:.1f} audio-s/s "
-        f"({decode_audio_s:.1f} audio-s in {decode_wall:.2f} s, "
-        f"mode={config.device_decode}, "
+        f"({decode_audio_s:.1f} audio-s in {decode_wall:.2f} s of decode and the forward "
+        f"work in flight, mode={config.device_decode}, "
         f"beam={config.export_beam_width})"
     )
-    if len(decode_walls) > 1 and steady > 0:
-        msg += (
-            f"; steady-state {steady_audio / steady:.1f} "
-            f"audio-s/s (excl. slowest batch)"
-        )
-    return msg
 
 
 def main(argv=None):

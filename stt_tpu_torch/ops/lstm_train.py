@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from stt_tpu_torch import trace
 from stt_tpu_torch.models.lstm import (
     State,
     lengths,
@@ -219,13 +220,14 @@ class _Recurrence(torch.autograd.Function):
     def backward(ctx, d_hs, d_cT, d_hT):
         w, c0, h0, seq, hs, cs, zs = ctx.saved_tensors
         x_dtype, w_dtype = ctx.dtypes
-        cs_prev = torch.cat([c0[None], cs])[:hs.shape[0]]
-        dz, dc0, dh0 = lstm_train_bwd(
-            zs, cs, cs_prev.contiguous(), _cotangent(d_hs, hs), w, seq,
-            _cotangent(d_cT, c0), _cotangent(d_hT, h0), packed=ctx.packed,
-        )
-        ctx.packed = None
-        dw_h = weight_grad(h0, hs, dz, w.dtype)
+        with trace.span("lstm.bwd"):
+            cs_prev = torch.cat([c0[None], cs])[:hs.shape[0]]
+            dz, dc0, dh0 = lstm_train_bwd(
+                zs, cs, cs_prev.contiguous(), _cotangent(d_hs, hs), w, seq,
+                _cotangent(d_cT, c0), _cotangent(d_hT, h0), packed=ctx.packed,
+            )
+            ctx.packed = None
+            dw_h = weight_grad(h0, hs, dz, w.dtype)
         # x_proj is stored in the compute dtype, so its gradient is too
         return dz.to(x_dtype), dw_h.to(w_dtype), dc0, dh0, None, None
 

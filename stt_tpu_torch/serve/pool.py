@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from stt_tpu_torch import trace
 from stt_tpu_torch.decode.beam import make_decoder_state
 from stt_tpu_torch.decode.device import DeviceStreamingDecoder, prune_emissions
 from stt_tpu_torch.frontend import audio_to_mfcc
@@ -197,18 +198,23 @@ class StreamPool:
                 deep = any(len(self._audio[s]) >= self._chunk_samples + step for s in ready)
                 if not (all_ready or deep):
                     break
-            chunks = np.zeros((self.max_streams, self._chunk_samples), np.float32)
-            mode = np.zeros((self.max_streams,), np.int64)
-            for s in ready:
-                chunks[s] = self._audio[s][: self._chunk_samples]
-                self._audio[s] = self._audio[s][step:]
-                mode[s] = 2 if self._primed[s] else 1
-            out = self.fused_round(torch.from_numpy(chunks).to(dev), torch.from_numpy(mode).to(dev))
-            emits = {s: N_STEPS for s in ready if self._primed[s]}
-            for s in ready:
-                self._primed[s] = True
-            if emits:
-                self._dispatch_out(out, emits)
+            with trace.span("pool.round"):
+                chunks = np.zeros((self.max_streams, self._chunk_samples), np.float32)
+                mode = np.zeros((self.max_streams,), np.int64)
+                for s in ready:
+                    chunks[s] = self._audio[s][: self._chunk_samples]
+                    self._audio[s] = self._audio[s][step:]
+                    mode[s] = 2 if self._primed[s] else 1
+                out = self.fused_round(torch.from_numpy(chunks).to(dev),
+                                       torch.from_numpy(mode).to(dev))
+                emits = {s: N_STEPS for s in ready if self._primed[s]}
+                for s in ready:
+                    self._primed[s] = True
+                trace.count("pool.slots", self.max_streams)
+                trace.count("pool.slots_emitting", len(emits))
+                if emits:
+                    with trace.span("pool.beam"):
+                        self._dispatch_out(out, emits)
 
     def _dispatch_out(self, out, valid_by_slot: Dict[int, int]) -> None:
         """Send one round's output toward the decoders: device beams consume

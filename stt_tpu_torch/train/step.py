@@ -45,6 +45,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from stt_tpu_torch import trace
 from stt_tpu_torch.ctc import ctc_loss
 from stt_tpu_torch.device import resolve_device
 from stt_tpu_torch.parallel import distributed
@@ -130,9 +131,10 @@ def _loss_fn(
     """(the sum of this rank's finite losses over the global batch's count
     of finite losses, the count summed over `group`, else over every rank;
     per-example losses; finite mask)."""
-    logits, _ = model(
-        batch.features, seq_len=batch.feature_lengths, dropout_generator=generator
-    )
+    with trace.span("train.forward"):
+        logits, _ = model(
+            batch.features, seq_len=batch.feature_lengths, dropout_generator=generator
+        )
     losses = ctc_loss(logits, batch.feature_lengths, batch.labels, batch.label_lengths)
     finite = torch.isfinite(losses)
     n_finite = torch.clamp(distributed.allreduce_(finite.sum(), group), min=1)
@@ -143,17 +145,20 @@ def _loss_fn(
 def _update(state: TrainState, batch: Batch, seed: int) -> StepMetrics:
     model, optimizer = state.model, state.optimizer
     device = batch.features.device
-    optimizer.zero_grad(set_to_none=True)
-    loss, losses, finite = _loss_fn(
-        model, batch, dropout_generator(seed, state.step, device, distributed.process_index()))
-    loss.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    if distributed.active():
-        # one all-reduce of every gradient, flattened, and of the loss
-        _allreduce_flat_(grads)
-        loss = distributed.allreduce_(loss.detach().clone())
-    grad_norm = torch.sqrt(_square_sum(grads)).float()
-    optimizer.step()
+    with trace.span("train.step", device=True):
+        optimizer.zero_grad(set_to_none=True)
+        loss, losses, finite = _loss_fn(
+            model, batch, dropout_generator(seed, state.step, device, distributed.process_index()))
+        with trace.span("train.backward"):
+            loss.backward()
+        with trace.span("train.optim"):
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            if distributed.active():
+                # one all-reduce of every gradient, flattened, and of the loss
+                _allreduce_flat_(grads)
+                loss = distributed.allreduce_(loss.detach().clone())
+            grad_norm = torch.sqrt(_square_sum(grads)).float()
+            optimizer.step()
     state.step += 1
     return StepMetrics(loss.detach(), losses.detach(), ~finite, grad_norm)
 

@@ -354,6 +354,49 @@ def test_train_step_on_card_launches_k3_k4_and_matches_cpu(device):
                                    atol=1e-4 * want.abs().max().item(), err_msg=name)
 
 
+def test_traced_train_step_on_card_marks_each_device_span(device):
+    """A train step under a profiler session of the card's activity: each
+    device span (`train.step`, `ctc.loss`, `ctc.loss.bwd`) puts a marker
+    kernel on the stream at its entry and its exit, the trace holds all
+    six, the step's come first and last, and the loss's and the
+    recurrence's backward run on autograd's device thread under
+    `train.backward`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stt_tpu_torch import trace
+    from stt_tpu_torch.train.step import Batch, create_train_state, make_train_step
+
+    config = ModelConfig(n_hidden=64, n_cell_dim=128, n_out=29, dropout_rates=(0.0,) * 6)
+    rs = np.random.RandomState(2)
+    batch = Batch(torch.from_numpy((rs.randn(3, 40, 26) * 3).astype(np.float32)),
+                  torch.tensor([40, 31, 22], dtype=torch.int32),
+                  torch.from_numpy(rs.randint(0, 28, (3, 8)).astype(np.int32)),
+                  torch.tensor([8, 5, 3], dtype=torch.int32)).to(device)
+    state = create_train_state(config, seed=0, device=device)
+    step = make_train_step()
+    step(state, batch, 1)
+    torch.cuda.synchronize()
+    trace.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, batch, 1)
+            torch.cuda.synchronize()
+        markers = [e for e in prof.profiler.kineto_results.events() if trace.MARKER in e.name()]
+        spans = trace.spans()
+    finally:
+        trace.reset()
+    marked = {s.name: s for s in spans if s.marks}
+    assert set(marked) == {"train.step", "ctc.loss", "ctc.loss.bwd"}
+    numbers = sorted(n for s in marked.values() for n, _, _ in s.marks)
+    assert len(markers) == len(numbers) == 6
+    step_span = marked["train.step"]
+    assert (step_span.marks[0][0], step_span.marks[1][0]) == (numbers[0], numbers[-1])
+    assert marked["ctc.loss"].marks[1][0] < marked["ctc.loss.bwd"].marks[0][0]
+    [lstm_bwd] = [s for s in spans if s.name == "lstm.bwd"]
+    for s in (lstm_bwd, marked["ctc.loss.bwd"]):
+        assert s.tid != step_span.tid and s.parent.name == "train.backward"
+
+
 def test_serving_on_card_launches_k1_and_no_training_kernel(device, tmp_path):
     from stt_tpu_torch.alphabet import Alphabet
     from stt_tpu_torch.artifact import build_metadata, save_artifact

@@ -332,7 +332,11 @@ def test_training_with_augmentations_feature_cache_and_profiler(dataset):
     assert JaxFeatureCache(str(cache)).complete  # epoch 2 refilled it; stt_tpu reads it
     trace = profile / "trace.json"
     assert trace.is_file()
-    assert json.loads(trace.read_text())["traceEvents"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert events
+    # the program's spans are the trace's ranges by layer
+    names = {e.get("name") for e in events}
+    assert {"train.step", "ctc.loss", "train.backward", "ctc.loss.bwd"} <= names
 
 
 def test_scorer_path_passes_preflight_or_raises(tmp_path):
