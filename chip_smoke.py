@@ -48,7 +48,11 @@
      the batch and the streaming device decoders at beam 500 must give the
      plain scan's transcripts. Then where a frame's time goes at beam 32
      and 500 (a variant built with K5_PHASE_CLOCKS: SM cycles by phase) and
-     the most live keys a frame had.
+     the most live keys a frame had;
+   - the backtrace (also `--phases backtrack`), on K5's backpointers at
+     B 128, T 750 in each of their three forms ((W, C) in {(500, 29),
+     (500, 256), (600, 5)}): paths equal to its plain version's, and its
+     time repeated and with the L2 overwritten before each run.
 3. Serving phase: a full-width DeepSpeech (the 2048 geometry, 29 outputs)
    with random weights from a seeded generator, saved as an artifact and
    opened with `Model(dir)` on the card; answers `stt` on three utterances,
@@ -968,6 +972,50 @@ def k5_phase(device, seed: int) -> list:
           "128, 500 and 1024; 29, 256 (blank last and first), 300, 1,000 and 4,096 classes)",
           flush=True)
     large_alphabet_decodes(device, seed)
+    return records
+
+
+BACKTRACK_SHAPES = ((500, 29), (500, 256), (600, 5))  # (W, C) at B 128, T 750: the three planes
+
+
+def backtrack_phase(device, seed: int) -> list:
+    """The backtrace kernel on K5's backpointers at the batch cells' shape
+    (B 128, T 750, one result): against its plain version on the card, and
+    its times, repeated (the walks' lines stay in the L2) and alone with the
+    L2 overwritten before each run. Its bound is bytes (each walk's T
+    entries, the scores, the paths), but each walk is T dependent loads, so
+    its time is T times the memory's latency. No PyTorch call walks
+    backpointers: no library time."""
+    from stt_tpu_torch.decode.device import PATH_HEAD, backtrack_plain
+    from stt_tpu_torch.ops import beam_kernel
+
+    B, T, R = 128, 750, 1
+    spoil = flush_l2(device)
+    records = []
+    for W, C in BACKTRACK_SHAPES:
+        probs, lens = beam_inputs(B, T, C, True, seed + W + C, device)
+        _, scores, bp = beam_kernel.beam_scan(probs, lens, W)
+        run = lambda: beam_kernel.beam_backtrack(scores, bp, R)
+        got = run()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = backtrack_plain(scores, bp, R)
+        end.record()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"backtrace W={W} C={C}: the kernel's paths differ from the plain version's")
+        entry = 8 if isinstance(bp, tuple) else bp.element_size()
+        moved = B * R * T * entry + B * W * 4 + B * R * (PATH_HEAD + 2 * T) * 4
+        bound, bound_by = bound_ms(moved, 0, torch.float32)
+        rec = {"W": W, "C": C, "B": B, "T": T, "R": R,
+               "plane": "pair" if isinstance(bp, tuple) else str(bp.dtype),
+               "paths": "equal", "ms": cuda_ms(run, 20),
+               "device_ms": kernel_device_ms(run, "beam_backtrack_kernel", 20),
+               "cold_ms": alone_ms(run, spoil, 10), "plain_ms": start.elapsed_time(end),
+               "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+               "dependent_loads_per_walk": T}
+        print("backtrack", json.dumps(rec), flush=True)
+        records.append(rec)
     return records
 
 
@@ -4459,7 +4507,8 @@ def main() -> int:
                         help="with --phases k5: also time K5 in turns against this version of "
                              "its source")
     parser.add_argument("--phases", default="",
-                        help="comma-separated phases (k1, k2, k3k4, k5, decoder, evaluation, "
+                        help="comma-separated phases (k1, k2, k3k4, k5, backtrack, decoder, "
+                             "evaluation, "
                              "input, pool, augment, parallel, tp, entry, capi, compat, import, "
                              "scripts) to "
                              "run alone "
@@ -4509,7 +4558,8 @@ def main() -> int:
     work_dir = os.path.join(ROOT, "build", "chip_smoke")
 
     if args.phases:
-        alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase}
+        alone = {"k1": k1_phase, "k2": k2_phase, "k3k4": train_kernel_phase, "k5": k5_phase,
+                 "backtrack": backtrack_phase}
         for name in args.phases.split(","):
             if name in ("input", "import", "scripts"):
                 phase = {"input": input_phase, "import": import_phase,
@@ -4549,6 +4599,7 @@ def main() -> int:
     k3k4 = train_kernel_phase(device, args.seed)
     k5 = k5_phase(device, args.seed)
     k5_phases = k5_split(device, args.seed, k5)
+    backtrack = backtrack_phase(device, args.seed)
     scorers = build_scorers(os.path.join(work_dir, "lm"), args.seed)
     serving = serving_phase(device, args.seed, os.path.join(work_dir, "model"), scorers)
     decoder = decoder_phase(device, args.seed, scorers, serving.pop("decoder_inputs"))
@@ -4639,7 +4690,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"gpu": card, "torch": torch.__version__, "k1": k1, "k2": k2, "k3k4": k3k4,
-                       "k5": k5, "k5_phases": k5_phases, "native_build": native_build,
+                       "k5": k5, "k5_phases": k5_phases, "backtrack": backtrack,
+                       "native_build": native_build,
                        "serving": serving, "decoder": decoder, "training": training,
                        "evaluation": evaluation, "input": inputs, "pool": pool,
                        "augment": augment, "parallel": parallel, "tp": tp, "entry": entry,

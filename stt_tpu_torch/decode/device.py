@@ -17,9 +17,14 @@
    log p_nonblank, last label, string hashes); each frame expands every
    (slot, label) pair, merges the repeat / blank / extend cases as the
    host decoder (decode/beam.py) does, and keeps the top `beam`
-   candidates. Only backpointer tables leave the device; the host rebuilds
-   strings and timesteps by walking them (`rebuild_results`), in O(T +
-   tokens) whatever the alphabet's size. Every shape goes through the beam
+   candidates. The scan leaves backpointer tables on the device; strings and
+   timesteps come from walking them back, in O(T + tokens) whatever the
+   alphabet's size: for a batch (`ctc_beam_search_decoder_device`) on the
+   device by the backtrace (`stt_tpu_torch.ops.beam_kernel.beam_backtrack`,
+   plain version `backtrack_plain`), which sends only the chosen paths to
+   the host; for a stream (`DeviceStreamingDecoder`) and
+   `device_beam_search` on the host (`rebuild_results`), after the tables
+   are copied there. Every shape goes through the beam
    kernel's wrapper (`stt_tpu_torch.ops.beam_kernel.beam_scan`, which takes
    every beam and every alphabet), which launches the Hopper kernel on
    CUDA tensors and runs `beam_scan_plain`, the kernel's plain version, on
@@ -563,6 +568,79 @@ def beam_scan_plain(
     return state, torch.stack(srcs, dim=1), torch.stack(chars, dim=1)
 
 
+PATH_HEAD = 3  # a path's score (float32 bits), beam slot and token count, before its tokens
+
+
+@torch.no_grad()
+def backtrack_plain(scores: torch.Tensor, bp, num_results: int) -> torch.Tensor:
+    """The paths of each row's `num_results` best beams, walked back through
+    the scan's backpointers where they lie: the plain version of the
+    backtrace kernel (`stt_tpu_torch.ops.beam_kernel.beam_backtrack`), a
+    loop over the frames of gathers across B x R.
+
+    scores [B, W]; bp the packed [B, T, W] plane or the (bp_src, bp_char)
+    pair, as `scan` returns them. Returns [B, R, PATH_HEAD + 2 T] int32: per
+    row the beams in the order of `rebuild_results` (descending score, ties
+    to the lower slot), each as its score's float32 bits, its slot (-1 where
+    it is no result: a non-finite score, or fewer than R beams), its token
+    count n, then T tokens and T frames, the first n of each in time order
+    and the rest 0."""
+    pair = isinstance(bp, tuple)
+    B, T, W = (bp[0] if pair else bp).shape
+    R = int(num_results)
+    K = min(R, W)
+    dev = scores.device
+    picked = torch.sort(-scores, dim=1, stable=True).indices[:, :K]
+    value = scores.gather(1, picked)
+    found = torch.isfinite(value)
+    w = picked
+    chars = torch.empty((B, K, T), dtype=torch.int32, device=dev)
+    for t in range(T - 1, -1, -1):
+        if pair:
+            src, ch = bp[0][:, t].gather(1, w), bp[1][:, t].gather(1, w)
+        else:
+            v = bp[:, t].gather(1, w).to(torch.int32)
+            src, ch = v >> 8, (v & 0xFF) - 1
+        chars[:, :, t] = ch
+        w = src.long()
+    kept = (chars != _KEEP) & found[..., None]
+    count = kept.sum(-1)
+    # a stable sort puts each path's token frames first, in time order
+    frames = torch.sort((~kept).to(torch.int8), dim=-1, stable=True).indices
+    live = torch.arange(T, device=dev) < count[..., None]
+    out = torch.zeros((B, R, PATH_HEAD + 2 * T), dtype=torch.int32, device=dev)
+    out[:, :, 1] = -1
+    out[:, :K, 0] = torch.where(found, value, torch.zeros_like(value)).view(torch.int32)
+    out[:, :K, 1] = torch.where(found, picked, torch.full_like(picked, -1)).to(torch.int32)
+    out[:, :K, 2] = count.to(torch.int32)
+    out[:, :K, PATH_HEAD:PATH_HEAD + T] = torch.where(live, chars.gather(-1, frames), 0)
+    out[:, :K, PATH_HEAD + T:] = torch.where(live, frames, 0).to(torch.int32)
+    return out
+
+
+def paths_to_results(paths: np.ndarray, alphabet: Alphabet) -> List[List[DecodeResult]]:
+    """The backtrace's paths [B, R, PATH_HEAD + 2 T] on the host -> per row
+    the DecodeResults that `rebuild_results` builds from the same beams."""
+    T = (paths.shape[-1] - PATH_HEAD) // 2
+    confidence = paths[..., 0].view(np.float32)
+    batch = []
+    for row, row_conf in zip(paths, confidence):
+        results = []
+        for path, conf in zip(row, row_conf):
+            if path[1] < 0:
+                continue
+            n = int(path[2])
+            tokens = path[PATH_HEAD:PATH_HEAD + n].tolist()
+            results.append(DecodeResult(
+                confidence=float(conf),
+                transcript=alphabet.decode(tokens),
+                tokens=tokens,
+                timesteps=path[PATH_HEAD + T:PATH_HEAD + T + n].tolist(),
+            ))
+        batch.append(results or [DecodeResult(0.0, "", [], [])])
+    return batch
+
+
 def _device_beam_scan(probs, seq_len, beam_width, cutoff_top_n, cutoff_prob,
                       blank_id=None, ignored_symbols=()):
     """[B, T, C] probs -> (scores [B, W], bp_src, bp_char [B, T, W]) from
@@ -661,6 +739,22 @@ class DeviceStreamingDecoder:
         return rebuild_results(scores, src, char, self.alphabet, num_results)
 
 
+def _batch_scan(probs, seq_lengths, beam_width, cutoff_top_n, cutoff_prob, blank_id,
+                ignored_symbols, device):
+    """The scan of a [B, T, C] batch from root-only beams, where the
+    probabilities lie (a host array goes to `device`): (scores [B, W],
+    backpointers as `scan` returns them), both on that device."""
+    probs = _on_device(probs, device)
+    if probs.dim() == 2:
+        probs = probs[None]
+    lens = torch.as_tensor(np.atleast_1d(np.asarray(seq_lengths)), dtype=torch.int32)
+    _, scores, bp = scan(
+        probs.contiguous(), lens.to(probs.device), int(beam_width), int(cutoff_top_n),
+        float(cutoff_prob), None if blank_id is None else int(blank_id), ignored_symbols,
+    )
+    return scores, bp
+
+
 def device_beam_search(
     probs,
     seq_lengths,
@@ -676,19 +770,11 @@ def device_beam_search(
     unless the caller passes "cpu").
 
     Returns (scores [B, W], bp_src [B, T, W], bp_char [B, T, W]) as numpy
-    arrays; strings and timesteps are the host's `rebuild_results`.
+    arrays, for the host's `rebuild_results`.
     blank_id / ignored_symbols cover external (wav2vec2-style) layouts."""
-    probs = _on_device(probs, device)
-    if probs.dim() == 2:
-        probs = probs[None]
-    lens = torch.as_tensor(np.atleast_1d(np.asarray(seq_lengths)), dtype=torch.int32)
-    _, scores, bp = scan(
-        probs.contiguous(), lens.to(probs.device), int(beam_width), int(cutoff_top_n),
-        float(cutoff_prob), None if blank_id is None else int(blank_id), ignored_symbols,
-    )
-    bp = tuple(p.cpu() for p in bp) if isinstance(bp, tuple) else bp.cpu()
-    with trace.span("decode.unpack"):
-        src, char = _host_backpointers(bp)
+    scores, bp = _batch_scan(probs, seq_lengths, beam_width, cutoff_top_n, cutoff_prob,
+                             blank_id, ignored_symbols, device)
+    src, char = _host_backpointers(bp)
     return scores.cpu().numpy(), src, char
 
 
@@ -749,7 +835,15 @@ def ctc_beam_search_decoder_device(
     device) is consumed as it is, so the probabilities never visit the host
     at full width; a host array, or a list of [T_i, C] arrays padded to a
     rectangle, is moved to `device` (the card unless the caller passes
-    "cpu")."""
+    "cpu").
+
+    The backpointers stay where the scan wrote them: the backtrace
+    (`stt_tpu_torch.ops.beam_kernel.beam_backtrack`) walks each row's
+    num_results best beams there, and only those paths, [B, num_results,
+    PATH_HEAD + 2 T] int32, cross to the host. The results equal
+    `rebuild_results`' on the same backpointers."""
+    from stt_tpu_torch.ops import beam_kernel
+
     if getattr(probs_batch, "ndim", 0) == 3:
         batch = probs_batch
         B = batch.shape[0]
@@ -766,12 +860,9 @@ def ctc_beam_search_decoder_device(
         batch[..., C - 1 if blank_id is None else int(blank_id)] = 1.0
         for i, p in enumerate(items):
             batch[i, : p.shape[0]] = p
-    scores, src, char = device_beam_search(
-        batch, np.asarray(seq_lengths, np.int32), beam_size, cutoff_top_n,
-        cutoff_prob, blank_id=blank_id, ignored_symbols=ignored_symbols, device=device,
-    )
+    scores, bp = _batch_scan(batch, np.asarray(seq_lengths, np.int32), beam_size, cutoff_top_n,
+                             cutoff_prob, blank_id, ignored_symbols, device)
+    paths = beam_kernel.beam_backtrack(scores, bp, num_results).cpu()
+    trace.count("decode.d2h_bytes", paths.numel() * paths.element_size())
     with trace.span("decode.rebuild"):
-        return [
-            rebuild_results(scores[i], src[i], char[i], alphabet, num_results)
-            for i in range(B)
-        ]
+        return paths_to_results(paths.numpy(), alphabet)

@@ -74,8 +74,8 @@ def decode_batch(config: SttConfig, probs: torch.Tensor, lengths: List[int], alp
     if mode == "auto":
         mode = "prune"
     if mode == "full" and scorer is None:
-        # the whole per-frame expansion and prune on the device; the host
-        # only walks the backpointers
+        # the whole per-frame expansion and prune, and the walk of the
+        # backpointers, on the device; the host gets the chosen paths
         with trace.span("decode.batch"):
             return ctc_beam_search_decoder_device(
                 probs, lengths, alphabet, beam_size=config.export_beam_width,

@@ -29,6 +29,11 @@ to a multiple of 128 slots. The huge instance returns its backpointers as
 the pair of int32 planes (bp_src, bp_char) that the plain version returns,
 since its characters may pass 254. Its flat candidate indices are ints:
 beam x (classes + 1) may be at most MAX_FLAT = 2^30.
+
+`beam_backtrack` walks each row's best beams back through those
+backpointers where they lie, with a second kernel of the same source (the
+backtrace) on CUDA tensors, so that a batch decode sends the host its
+paths and not its [B, T, W] planes.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ import torch
 
 from stt_tpu_torch.decode.device import (
     NEG_INF,
+    PATH_HEAD,
     BeamState,
+    backtrack_plain,
     beam_scan_plain,
     class_masks,
     logaddexp,
@@ -275,3 +282,53 @@ def beam_scan(
 
 
 beam_scan.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _backtrack_function():
+    fn = load("beam_scan").beam_backtrack
+    # scores, bp, bp_char; bp's bytes; out; B, T, W, R; the stream
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def beam_backtrack(scores: torch.Tensor, bp, num_results: int = 1) -> torch.Tensor:
+    """The paths of each row's `num_results` best beams, walked back through
+    `beam_scan`'s backpointers where they lie: the backtrace kernel in
+    `csrc/beam_scan.cu` on CUDA tensors, its plain version
+    (`stt_tpu_torch.decode.device.backtrack_plain`, which documents the
+    [B, num_results, PATH_HEAD + 2 T] int32 result) on CPU tensors.
+
+    scores [B, W] and bp as `beam_scan` returns them: the packed plane
+    [B, T, W] (int16 or int32) or the huge instance's (bp_src, bp_char)
+    pair; the kernel reads whichever it is given."""
+    pair = isinstance(bp, tuple)
+    plane = bp[0] if pair else bp
+    if plane.dim() != 3:
+        raise ValueError(f"backpointers must be [B, T, W], got {tuple(plane.shape)}")
+    B, T, W = plane.shape
+    R = int(num_results)
+    if R < 0:
+        raise ValueError(f"num_results must be at least 0, got {R}")
+    device = plane.device
+    scores = scores.contiguous()
+    if pair:
+        planes = {"bp_src": (bp[0], (B, T, W), torch.int32),
+                  "bp_char": (bp[1], (B, T, W), torch.int32)}
+    else:  # the packed plane: int16 or int32
+        planes = {"bp": (bp, (B, T, W), bp.dtype if bp.dtype == torch.int16 else torch.int32)}
+    check_tensors({"scores": (scores, (B, W), torch.float32), **planes}, device)
+    if device.type == "cpu":
+        return backtrack_plain(scores, bp, R)
+    out = torch.empty((B, R, PATH_HEAD + 2 * T), dtype=torch.int32, device=device)
+    if B * R == 0:
+        return out
+    beam_backtrack.launches += 1
+    launch(_backtrack_function(), "beam_backtrack", device, scores.data_ptr(), plane.data_ptr(),
+           bp[1].data_ptr() if pair else None, plane.element_size(), out.data_ptr(), B, T, W, R)
+    return out
+
+
+beam_backtrack.launches = 0

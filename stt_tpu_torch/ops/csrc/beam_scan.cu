@@ -90,6 +90,27 @@
 // length or before the first non-blank frame cost one store per slot.
 //
 // Not done yet: several utterances per block at small W.
+//
+// The backtrace, launched after the scan on the same stream
+// (beam_backtrack_kernel; it replaces no TPU kernel: stt_tpu walks the
+// backpointers on the host, as stt_tpu_torch/decode/device.py's
+// rebuild_results does, after copying all of them there). For each row b
+// and result r one warp picks the r-th beam in the order of
+// np.argsort(-scores[b], kind="stable") (descending, ties to the lower
+// slot, NaN last) by r + 1 warp-wide arg-max rounds over the beams after
+// the previous pick, then one lane walks that beam from frame T - 1 down to
+// 0 as rebuild_results does, padding frames included: char = the frame's
+// character at slot w, a token where it is not -1, w = the frame's source
+// slot. The path is B x R x (3 + 2 T) int32: the score's bits, the slot
+// (-1 where the pick is no result: a non-finite score, or no r-th beam),
+// the token count, then the tokens and their frames, each in time order
+// from index 0 and zero past the count. It reads the scan's backpointers in
+// the form the scan wrote them (the int16 or int32 packed plane, or the
+// huge instance's two int32 planes), only the T entries of each walk.
+// What bounds it: the walk is T dependent loads of a plane that the L2
+// does not hold (0.19 GB at B 128, T 750, W 500), ~T x the device memory's
+// latency; the bytes (B R T entries, the scores, the paths) take
+// microseconds. The warps of a batch walk side by side.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -899,6 +920,115 @@ int scan(const float* probs, const int32_t* lens, const int32_t* nign,
                                     cutoff_prob, on);
 }
 
+constexpr int PATH_HEAD = 3;  // a path's score bits, slot and token count before its tokens
+
+// whether beam (a, ia) comes before beam (b, ib) in the order of
+// np.argsort(-scores, kind="stable"): descending, NaN last, ties to the lower slot
+__device__ __forceinline__ bool ranks_before(float a, int ia, float b, int ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na != nb) return nb;
+  if (!na && a != b) return a > b;
+  return ia < ib;
+}
+
+// Frame t's (source slot, character) at slot w of row b: the packed plane
+// (src << 8) | (char + 1) of int16 or int32, or the pair of int32 planes.
+template <typename BP, bool PAIR>
+__device__ __forceinline__ void backpointer(const BP* bp, const int32_t* bp_char, size_t at,
+                                            int* src, int* ch) {
+  if (PAIR) {
+    *src = bp[at];
+    *ch = bp_char[at];
+  } else {
+    const int32_t v = bp[at];
+    *src = v >> 8;
+    *ch = (v & 0xFF) - 1;
+  }
+}
+
+// grid B x R blocks of one warp: block (b, r) writes out[b, r] (see the
+// header of this file). bp [B, T, W]; bp_char [B, T, W] with PAIR.
+template <typename BP, bool PAIR>
+__global__ void __launch_bounds__(32)
+beam_backtrack_kernel(const float* __restrict__ scores,  // [B, W]
+                      const BP* __restrict__ bp, const int32_t* __restrict__ bp_char,
+                      int32_t* __restrict__ out,          // [B, R, PATH_HEAD + 2 T]
+                      int T, int W, int R) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int b = blockIdx.x / R, r = blockIdx.x % R, lane = threadIdx.x;
+  const float* s = scores + (size_t)b * W;
+
+  // the r-th beam: r + 1 arg-max rounds, each over the beams after the last pick
+  int pick = -1;
+  float value = 0.0f;
+  for (int k = 0; k <= r; ++k) {
+    int best = -1;
+    float best_v = 0.0f;
+    for (int w = lane; w < W; w += 32) {
+      const float v = s[w];
+      if (k > 0 && !ranks_before(value, pick, v, w)) continue;
+      if (best < 0 || ranks_before(v, w, best_v, best)) best = w, best_v = v;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const int o = __shfl_down_sync(FULL, best, off);
+      const float ov = __shfl_down_sync(FULL, best_v, off);
+      if (o >= 0 && (best < 0 || ranks_before(ov, o, best_v, best))) best = o, best_v = ov;
+    }
+    pick = __shfl_sync(FULL, best, 0);
+    value = __shfl_sync(FULL, best_v, 0);
+    if (pick < 0) break;  // fewer than r + 1 beams
+  }
+  const bool found = pick >= 0 && isfinite(value);
+
+  int32_t* path = out + ((size_t)b * R + r) * (PATH_HEAD + 2 * (size_t)T);
+  int32_t* tokens = path + PATH_HEAD;
+  int32_t* frames = tokens + T;
+  int n = 0;
+  if (found) {
+    // one lane chases the pointers, writing the tokens from the end of the row
+    if (lane == 0) {
+      const size_t row = (size_t)b * T;
+      int w = pick;
+      for (int t = T - 1; t >= 0; --t) {
+        int src, ch;
+        backpointer<BP, PAIR>(bp, bp_char, (row + t) * W + w, &src, &ch);
+        if (ch != -1) {
+          ++n;
+          tokens[T - n] = ch;
+          frames[T - n] = t;
+        }
+        w = src;
+      }
+    }
+    n = __shfl_sync(FULL, n, 0);
+    __syncwarp();
+    // the warp moves them to the front: a round reads its 32 before it writes,
+    // and writes below where any later round reads
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      int tok = 0, frame = 0;
+      if (i < n) tok = tokens[T - n + i], frame = frames[T - n + i];
+      __syncwarp();
+      if (i < n) tokens[i] = tok, frames[i] = frame;
+      __syncwarp();
+    }
+  }
+  for (int i = n + lane; i < T; i += 32) tokens[i] = 0, frames[i] = 0;
+  if (lane == 0) {
+    path[0] = found ? __float_as_int(value) : 0;
+    path[1] = found ? pick : -1;
+    path[2] = n;
+  }
+}
+
+template <typename BP, bool PAIR>
+int launch_backtrack(const float* scores, const void* bp, const int32_t* bp_char, int32_t* out,
+                     int B, int T, int W, int R, cudaStream_t stream) {
+  beam_backtrack_kernel<BP, PAIR><<<B * R, 32, 0, stream>>>(
+      scores, static_cast<const BP*>(bp), bp_char, out, T, W, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -969,6 +1099,25 @@ int beam_scan_huge(const float* probs, const int32_t* lens, const int32_t* nign,
                                     static_cast<u64*>(pool), static_cast<unsigned char*>(ws),
                                     B, T, W, S, C, blank, cutoff_top_n, mode, cutoff_prob,
                                     static_cast<cudaStream_t>(stream));
+}
+
+// The backtrace: scores [B, W] f32 (the scan's final scores); bp [B, T, W]
+// as the scan wrote it, the packed plane (int16 with bp_bytes 2, int32 with
+// 4) or, with bp_char [B, T, W] int32 given, the source plane of the huge
+// instance's pair; out [B, R, 3 + 2 T] int32, the paths of each row's R
+// best beams (see the header of this file). 1 <= W, 0 <= T.
+int beam_backtrack(const float* scores, const void* bp, const int32_t* bp_char, int bp_bytes,
+                   int32_t* out, int B, int T, int W, int R, void* stream) {
+  if (B <= 0 || R <= 0) return 0;
+  if (W < 1 || T < 0 || (long long)B * R > 0x7fffffffLL ||
+      (bp_char == nullptr && bp_bytes != 2 && bp_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t on = static_cast<cudaStream_t>(stream);
+  if (bp_char != nullptr)
+    return launch_backtrack<int32_t, true>(scores, bp, bp_char, out, B, T, W, R, on);
+  if (bp_bytes == 2)
+    return launch_backtrack<int16_t, false>(scores, bp, nullptr, out, B, T, W, R, on);
+  return launch_backtrack<int32_t, false>(scores, bp, nullptr, out, B, T, W, R, on);
 }
 
 #ifdef K5_PHASE_CLOCKS

@@ -20,7 +20,8 @@ sequence a last-bit difference in expf/tanhf moves some h * 127 across a
 rounding boundary, that h_q then differs by one step (1/127 of h's range),
 and the difference spreads through W_h: 2e-2, with the share of differing
 h_q printed on failure. The beam scan (K5): backpointers equal, scores to
-1e-4.
+1e-4. The backtrace on K5's backpointers: paths equal to its plain
+version's, bit for bit.
 Gradients of `lstm_train` on the card against the CPU: in f32 1e-4 of each
 gradient's largest value; in bf16 the gradients of x and W_x pass through
 bf16 casts, so, as in tests/test_torch_lstm_train.py, by relative norm
@@ -839,6 +840,84 @@ def test_beam_kernel_huge_chunks_and_handover(device, W, C):
     assert torch.equal(torch.cat([p_src, k_src], dim=1), src)
     assert torch.equal(torch.cat([p_char, k_char], dim=1), char)
     np.testing.assert_allclose(scores2.cpu().numpy(), scores.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+# the batch cells' shapes: K5's narrow (29 classes) and wide (256) instances
+# at beam 500, and the huge instance's (bp_src, bp_char) pair at beam 600
+BACKTRACK_SHAPES = [(128, 750, 500, 29), (128, 750, 500, 256), (128, 750, 600, 5)]
+
+
+@pytest.mark.parametrize("B,T,W,C", BACKTRACK_SHAPES)
+def test_backtrack_kernel_matches_plain_on_k5_output(device, B, T, W, C):
+    """The backtrace kernel on K5's own backpointers, in the form K5 wrote
+    them, equals its plain version on the same tensors, for one and three
+    results, with rows shorter than T; launching it leaves K5's count
+    alone; the paths give the results `rebuild_results` builds on the host
+    from the copied plane."""
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.decode import device as decode_device
+    from stt_tpu_torch.ops import beam_kernel
+
+    probs, lens = beam_probs(B, T, C, B + T + W + C, True)
+    lens[1:] = torch.from_numpy(np.random.default_rng(C).integers(0, T + 1, B - 1).astype(np.int32))
+    probs, lens = probs.to(device), lens.to(device)
+    _, scores, bp = beam_kernel.beam_scan(probs, lens, W)
+    assert isinstance(bp, tuple) == (W > 512)
+    scans = beam_kernel.beam_scan.launches
+    paths = {}
+    for R in (1, 3):
+        before = beam_kernel.beam_backtrack.launches
+        paths[R] = beam_kernel.beam_backtrack(scores, bp, R)
+        torch.cuda.synchronize()
+        assert beam_kernel.beam_backtrack.launches == before + 1
+        want = decode_device.backtrack_plain(scores, bp, R)
+        assert torch.equal(paths[R], want), (paths[R] != want).nonzero()[:5]
+    assert beam_kernel.beam_scan.launches == scans
+    alphabet = Alphabet().init_from_labels([chr(0x4E00 + i) for i in range(C - 1)])
+    src, char = beam_kernel.unpack_bp(
+        tuple(p.cpu() for p in bp) if isinstance(bp, tuple) else bp.cpu().numpy())
+    host_scores = scores.cpu().numpy()
+    got = decode_device.paths_to_results(paths[3].cpu().numpy(), alphabet)
+    for i in range(B):
+        assert got[i] == decode_device.rebuild_results(host_scores[i], src[i], char[i], alphabet, 3)
+
+
+def test_batch_device_decode_walks_on_the_card(device):
+    """`evaluate`'s batch device decode launches K5 and the backtrace once a
+    batch, copies to the host no more than the paths, B x R x (2 T + 4) x 4
+    bytes (`decode.d2h_bytes` on its `decode.batch` span), and returns what
+    `rebuild_results` builds from the whole plane."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stt_tpu_torch import trace
+    from stt_tpu_torch.alphabet import Alphabet
+    from stt_tpu_torch.config import SttConfig
+    from stt_tpu_torch.decode import device as decode_device
+    from stt_tpu_torch.evaluate import decode_batch
+    from stt_tpu_torch.ops import beam_kernel
+
+    labels = list(" abcdefghijklmnopqrstuvwxyz'")
+    alphabet = Alphabet().init_from_labels(labels)
+    config = SttConfig(device_decode="full", export_beam_width=500, test_batch_size=16,
+                       alphabet=alphabet)
+    B, T, C = 16, 300, len(labels) + 1
+    batches = []
+    for k in range(2):
+        probs, lens = beam_probs(B, T, C, 40 + k, True)
+        batches.append((probs.to(device), lens.tolist()))
+    before = (beam_kernel.beam_scan.launches, beam_kernel.beam_backtrack.launches)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [decode_batch(config, probs, lens, alphabet) for probs, lens in batches]
+    copied = [s.counters["decode.d2h_bytes"] for s in trace.spans() if s.name == "decode.batch"]
+    trace.reset()
+    assert (beam_kernel.beam_scan.launches, beam_kernel.beam_backtrack.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert len(copied) == 2 and all(n <= B * 1 * (2 * T + 4) * 4 for n in copied)
+    for (probs, lens), results in zip(batches, got):
+        scores, src, char = decode_device.device_beam_search(probs, lens, 500)
+        assert results == [decode_device.rebuild_results(scores[i], src[i], char[i], alphabet, 1)
+                           for i in range(B)]
 
 
 def test_pool_on_card_with_device_decode_slots(device, tmp_path):

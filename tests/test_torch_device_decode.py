@@ -297,6 +297,51 @@ def test_shapes_beyond_the_kernel_take_the_plain_scan_and_count():
     assert beam_kernel.beam_scan.launches == before  # no kernel on the CPU
 
 
+BACKTRACK_LAYOUTS = {"int16": 16, "int32": 200, "pair": 600}  # the beam that gives each plane
+
+
+@pytest.mark.parametrize("layout,num_results,emissions", [
+    *((layout, r, e) for layout in BACKTRACK_LAYOUTS for r in (1, 3) for e in ("peaky", "tied")),
+    *((layout, 3, "no_frames") for layout in BACKTRACK_LAYOUTS),
+])
+def test_batch_decode_walks_the_plane_as_rebuild_results_does(layout, num_results, emissions):
+    """The batch decode walks the backpointers where the scan wrote them
+    (`beam_backtrack`; on CPU tensors its plain version) and sends the host
+    only the chosen paths; its results equal `rebuild_results`' over the
+    same plane exactly: the three forms of the plane, one and three
+    results, tied scores (uniform emissions), rows shorter than T, a row
+    of no frames (one live beam, fewer than num_results) and T = 0."""
+    alphabet, _ = make_alphabets()
+    W, C, B = BACKTRACK_LAYOUTS[layout], alphabet.size + 1, 4
+    T = 0 if emissions == "no_frames" else 10
+    if emissions == "peaky":
+        probs = softmax(np.random.RandomState(W + num_results).randn(B, T, C) * 3.0)
+    else:
+        probs = np.full((B, T, C), 1.0 / C)
+    probs = torch.from_numpy(probs.astype(np.float32))
+    lens = [T, max(T - 3, 0), min(T, 1), 0]
+    before = beam_kernel.beam_backtrack.launches
+    got = device.ctc_beam_search_decoder_device(probs, lens, alphabet, beam_size=W,
+                                                num_results=num_results)
+    scores, src, char = device.device_beam_search(probs, lens, W)
+    want = [device.rebuild_results(scores[i], src[i], char[i], alphabet, num_results)
+            for i in range(B)]
+    assert [[(r.transcript, r.tokens, r.timesteps, r.confidence) for r in row] for row in got] == \
+        [[(r.transcript, r.tokens, r.timesteps, r.confidence) for r in row] for row in want]
+    assert len(got[3]) == 1 and got[3][0].tokens == []  # the root alone
+    if emissions == "tied":  # one frame: the root and each label alike, picked by slot
+        assert (scores[2][np.isfinite(scores[2])] == np.float32(np.log(1.0 / C))).sum() == C
+    # the plane in the form the scan wrote it; on the CPU no kernel runs
+    _, scores_t, bp = device.scan(probs, torch.tensor(lens, dtype=torch.int32), W, 40, 1.0)
+    assert isinstance(bp, tuple) == (layout == "pair")
+    if layout != "pair":
+        assert bp.dtype == (torch.int16 if layout == "int16" else torch.int32)
+    paths = beam_kernel.beam_backtrack(scores_t, bp, num_results)
+    assert paths.shape == (B, num_results, device.PATH_HEAD + 2 * T)
+    assert device.paths_to_results(paths.numpy(), alphabet) == got
+    assert beam_kernel.beam_backtrack.launches == before
+
+
 @pytest.mark.parametrize("W,C,blank_id,cutoffs", [
     (64, 300, None, (1.0, 40)),  # a character alphabet past 256 symbols
     (32, 300, None, (0.95, 8)),

@@ -199,8 +199,7 @@ PATHS = {
         ("train.step", "train.backward"), ("train.backward", "ctc.loss.bwd"),
         ("train.backward", "lstm.bwd"), ("train.step", "train.optim")}),
     "decode": (lambda served: _decode(), {
-        (None, "decode.batch"), ("decode.batch", "decode.unpack"),
-        ("decode.batch", "decode.rebuild")}),
+        (None, "decode.batch"), ("decode.batch", "decode.rebuild")}),
     "pool": (_pool, {(None, "pool.round"), ("pool.round", "pool.beam")}),
 }
 
@@ -227,6 +226,10 @@ def test_a_traced_path_emits_its_span_tree(path, served):
         # the loss's backward runs from its output's gradient to the
         # logits', before the recurrence's backward starts
         assert backward.start <= bwd.start and bwd.end <= lstm_bwd.start
+    elif path == "decode":
+        # the paths of 3 rows, one result each, over 20 frames: 3 x (3 + 2 x 20) int32
+        [batch] = by_name["decode.batch"]
+        assert batch.counters == {"decode.d2h_bytes": 3 * (3 + 2 * 20) * 4}
     elif path == "pool":
         rounds = by_name["pool.round"]
         assert all(r.counters["pool.slots"] == 3 for r in rounds)
