@@ -1,8 +1,8 @@
 """Batch transcription, as `evaluate` runs it with --device_decode full and
 no scorer: audio on the card -> the program's MFCC -> the acoustic model
 (K1) -> softmax -> `evaluate.decode_batch` (the beam kernel K5 at the
-mix's beam, then the host's walk of the backpointers) -> transcripts on
-the host.
+mix's beam, then the backtrace of its backpointers on the card) ->
+transcripts on the host.
 
 The utterances take the mix's range of durations, are sorted by length
 and cut into batches, as evaluate batches a test set; each batch's audio is
@@ -23,6 +23,28 @@ import torch
 
 from port_bench import generator
 from port_bench.drivers import common
+
+# The CPU tests' cut (tiny.py): batches, beam and durations cut so that a
+# run takes seconds, the model 32 wide. The mix's logit scale (1000) is set
+# for the full widths: at 32 wide it gives the program readings up to 8e-4,
+# where 100 gives 3e-7 to 3e-6 against the control's 5e-3 and above.
+TINY = {"traffic": dict(batch=3, seconds=[0.5, 1.5], batches=2, beam_width=8, sample=3,
+                        logit_scale=100.0),
+        "cfg": {"n_hidden": 32, "n_cell_dim": 32},
+        "limits": {"beam_gap": 1e-4}}
+
+
+def _altered_rows(real):
+    def decode_batch(*args, **kw):
+        return [[common.altered_result(row[0])] + list(row[1:]) if row else row
+                for row in real(*args, **kw)]
+    return decode_batch
+
+
+# The faults the CPU tests plant in the program, by name: (module,
+# attribute, wrapper of the real one). The token is altered at the entry
+# the window calls, so the fault bites whatever runs below it.
+FAULTS = {"altered_token": ("stt_tpu_torch.evaluate", "decode_batch", _altered_rows)}
 
 
 def _utterances(run):
@@ -82,44 +104,17 @@ def _transcribe(run, ctx, k: int) -> None:
     ctx["results"][k] = [(list(r[0].tokens), float(r[0].confidence)) for r in decoded]
 
 
-class _HostRebuild:
-    """A span around each call of the program's host walk of the
-    backpointers (`decode.device.rebuild_results`), summed."""
-
-    def __init__(self):
-        from stt_tpu_torch.decode import device
-
-        self.module, self.inner, self.seconds = device, device.rebuild_results, 0.0
-
-    def __call__(self, *args, **kw):
-        start = time.perf_counter()
-        try:
-            return self.inner(*args, **kw)
-        finally:
-            self.seconds += time.perf_counter() - start
-
-    def __enter__(self):
-        self.module.rebuild_results = self
-        return self
-
-    def __exit__(self, *exc):
-        self.module.rebuild_results = self.inner
-
-
 def window(run, ctx, seconds: float) -> None:
     n = len(ctx["batches"])
-    done, rebuild_ms = [], []
+    done = []
     run.sync()
     start = time.perf_counter()
     deadline = start + seconds
     k = 0
-    with _HostRebuild() as rebuild:
-        while time.perf_counter() < deadline:
-            before = rebuild.seconds
-            _transcribe(run, ctx, k % n)
-            done.append((k % n, time.perf_counter()))
-            rebuild_ms.append((rebuild.seconds - before) * 1e3)
-            k += 1
+    while time.perf_counter() < deadline:
+        _transcribe(run, ctx, k % n)
+        done.append((k % n, time.perf_counter()))
+        k += 1
     whole = [i for i, (_, end) in enumerate(done) if end <= deadline or run.trace]
     b = ctx["batches"]
     run.records.update(
@@ -129,7 +124,6 @@ def window(run, ctx, seconds: float) -> None:
         frames=sum(sum(b[done[i][0]]["lengths"]) for i in whole),
         shapes=[(len(b[done[i][0]]["lengths"]), int(b[done[i][0]]["audio"].shape[1]),
                  sum(b[done[i][0]]["lengths"]), max(b[done[i][0]]["lengths"])) for i in whole],
-        rebuild_ms=[rebuild_ms[i] for i in whole],
         beam=run.traffic["beam_width"],
         attempted=len(whole) * run.traffic["batch"],
         failed=0,

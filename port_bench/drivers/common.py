@@ -111,6 +111,14 @@ def sample(seed: int, n: int, k: int, longest: int) -> list:
     return sorted(pick)
 
 
+def altered_result(result):
+    """A program's DecodeResult with its first label changed to its
+    neighbour (label ^ 1): the fault of a token altered where it is
+    produced, planted in the program by a driver's FAULTS."""
+    if not result.tokens:
+        return result
+    return result._replace(tokens=[result.tokens[0] ^ 1] + list(result.tokens[1:]))
+
 
 def as_served(results: list) -> list:
     """A reference's results in the program's form, (labels, confidence)."""

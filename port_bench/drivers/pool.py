@@ -33,6 +33,26 @@ import torch
 from port_bench import generator
 from port_bench.drivers import common
 
+# The CPU tests' cut (tiny.py): streams, bank, beam and durations cut so
+# that a run takes seconds, the model 32 wide; the logit scale and the
+# limit as the batch mix's (drivers/batch.py).
+TINY = {"traffic": dict(streams=3, seconds=[0.5, 1.5], bank=8, beam_width=8, warmup_ticks=6,
+                        sample=3, logit_scale=100.0),
+        "cfg": {"n_hidden": 32, "n_cell_dim": 32},
+        "limits": {"beam_gap": 1e-4}}
+
+
+def _altered_results(real):
+    def rebuild_results(*args, **kw):
+        return [common.altered_result(r) for r in real(*args, **kw)]
+    return rebuild_results
+
+
+# The faults the CPU tests plant in the program, by name: (module,
+# attribute, wrapper of the real one). The pool's device decoder walks each
+# finished stream's backpointers on the host.
+FAULTS = {"altered_token": ("stt_tpu_torch.decode.device", "rebuild_results", _altered_results)}
+
 
 def _bank(run) -> tuple:
     t, feat = run.traffic, run.cfg["features"]
@@ -160,7 +180,8 @@ def window(run, ctx, seconds: float) -> None:
             break
         wait = due - time.perf_counter()
         if wait > 0:
-            time.sleep(wait)
+            with run.span("pool.wait"):
+                time.sleep(wait)
         late.append(time.perf_counter() - due)
         _tick(run, ctx, due, counted=due < deadline)
         k += 1

@@ -28,6 +28,41 @@ from port_bench.reference import model as ref
 
 BETA1 = 0.9
 
+# The CPU tests' cut (tiny.py): batch, durations and padding cut so that a
+# run takes seconds, the model 32 wide. The limits from CPU readings at
+# these sizes: the program's loss, first-gradient and change gaps read
+# 1e-7, 1.4e-5 and 4.4e-5 against the control's (the reference with TF32
+# operands) 1.0e-5, 3.5e-4 and 1.3e-3.
+TINY = {"traffic": dict(batch=4, seconds=[1.0, 1.4], pad_frames=70, reference_rows=2),
+        "cfg": {"n_hidden": 32, "n_cell_dim": 32},
+        "limits": {"loss_gap": 2e-6, "grad_gap": 1e-4, "change_gap": 3e-4}}
+
+
+def _unchanged(real):
+    """A step that returns its state unchanged."""
+    def update(state, batch, seed):
+        kept = [p.detach().clone() for p in state.model.parameters()]
+        metrics = real(state, batch, seed)
+        with torch.no_grad():
+            for p, k in zip(state.model.parameters(), kept):
+                p.copy_(k)
+        return metrics
+    return update
+
+
+def _half_batch(real):
+    """A step over half of the batch, the mean taken over the rest."""
+    def update(state, batch, seed):
+        rows = batch.features.shape[0] // 2
+        return real(state, type(batch)(*(t[:rows] for t in batch)), seed)
+    return update
+
+
+# The faults the CPU tests plant in the program, by name: (module,
+# attribute, wrapper of the real one).
+FAULTS = {"unchanged": ("stt_tpu_torch.train.step", "_update", _unchanged),
+          "half_batch": ("stt_tpu_torch.train.step", "_update", _half_batch)}
+
 
 def _batches(run, device) -> tuple:
     """The mix's batches: (audio lengths [n], transcripts, durations) and

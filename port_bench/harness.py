@@ -69,6 +69,13 @@ def driver(traffic: dict):
     return importlib.import_module(f"port_bench.drivers.{traffic['driver']}")
 
 
+def cell_driver(cell: str):
+    """The module under drivers/ that the cell's traffic mix names."""
+    from port_bench import generator
+
+    return driver(generator.load_json("traffic", generator.load_json("workloads", cell)["traffic"]))
+
+
 class Run:
     """One run of one cell: its inputs, the spans the harness records
     around the program's calls, and what the window measured."""
@@ -141,12 +148,12 @@ def _clocks() -> dict:
 def traced_window(run: Run, fn) -> None:
     """fn() under torch.profiler (the card's activity only, so the host's
     calls run at their untraced cost), then its reduction: each device
-    operation's interval, the busy time (their union), the idle gaps and
-    what the harness's spans say the host was doing in each."""
+    operation's interval, the busy time (their union), the longest idle
+    gaps and what the host was doing in each (`name_gaps`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from port_bench import yardstick
+    from port_bench import spans, yardstick
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -166,17 +173,34 @@ def traced_window(run: Run, fn) -> None:
     lo, hi = c0[clock], c1[clock]
     busy, gaps = yardstick.union_ns(intervals, lo, hi)
     offset = c0[clock] - c0["perf"]
-    spans = [(name, int(s * 1e9) + offset, int(e * 1e9) + offset) for name, s, e in run.spans]
-    named_gaps = []
-    for s, e in sorted(gaps, key=lambda g: g[0] - g[1])[:10]:
-        doing = [name for name, a, b in spans if a <= s < b]
-        named_gaps.append((doing[-1] if doing else "harness", (e - s) / 1e9))
     by_name: Dict[str, float] = {}
     for name, s, e in intervals:
         if e > lo and s < hi:
             by_name[name] = by_name.get(name, 0.0) + (min(e, hi) - max(s, lo)) / 1e9
     run.trace_data = {"intervals": intervals, "lo": lo, "hi": hi, "window_s": (hi - lo) / 1e9,
-                      "busy_s": busy / 1e9, "gaps": named_gaps, "by_name": by_name}
+                      "busy_s": busy / 1e9, "by_name": by_name}
+    opened = [(name, int(s * 1e9) + offset, int(e * 1e9) + offset) for name, s, e in run.spans]
+    opened += [(s.name, s.start, s.end) for s in spans.window_spans(run) or []]
+    run.trace_data["gaps"] = name_gaps(sorted(gaps, key=lambda g: g[0] - g[1])[:10], opened)
+
+
+def name_gaps(gaps, opened) -> List[tuple]:
+    """(name, seconds) of each idle gap (start, end): what the host did for
+    the most of the gap. Each moment counts for the innermost of the
+    `opened` spans (name, start, end; the harness's and the program's, on
+    the trace's clock) open then, the one begun last, or for "harness"
+    where none is."""
+    out = []
+    for s, e in gaps:
+        inside = [o for o in opened if o[1] < e and o[2] > s]
+        cuts = sorted({s, e} | {t for o in inside for t in o[1:] if s < t < e})
+        spent: Dict[str, int] = {}
+        for a, b in zip(cuts, cuts[1:]):
+            inner = max((o for o in inside if o[1] <= a < o[2]), key=lambda o: o[1], default=None)
+            name = inner[0] if inner else "harness"
+            spent[name] = spent.get(name, 0) + b - a
+        out.append((max(spent, key=spent.get) if spent else "harness", (e - s) / 1e9))
+    return out
 
 
 def kernel_seconds(run: Run, patterns) -> float:

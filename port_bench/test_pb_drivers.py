@@ -4,10 +4,10 @@ with the timed path broken underneath in each way the cell can be, and
 with the control in the program's place, it does not."""
 
 import contextlib
+import importlib
 import time
 
 import pytest
-import torch
 
 from port_bench import harness, tiny
 
@@ -43,45 +43,14 @@ def test_sound_run_is_correct(cell):
     assert set(checks) == set(run.limits())
 
 
-def _unchanged(real):
-    def update(state, batch, seed):
-        kept = [p.detach().clone() for p in state.model.parameters()]
-        metrics = real(state, batch, seed)
-        with torch.no_grad():
-            for p, k in zip(state.model.parameters(), kept):
-                p.copy_(k)
-        return metrics
-    return update
-
-
-def _half_batch(real):
-    def update(state, batch, seed):
-        rows = batch.features.shape[0] // 2
-        return real(state, type(batch)(*(t[:rows] for t in batch)), seed)
-    return update
-
-
-def _altered(real):
-    def rebuild(*args, **kw):
-        out = real(*args, **kw)
-        return [r._replace(tokens=[r.tokens[0] ^ 1] + list(r.tokens[1:])) if r.tokens else r
-                for r in out]
-    return rebuild
-
-
-FAULTS = [(c, f) for c in CELLS if c.endswith("train-b512") for f in ("unchanged", "half_batch")]
-FAULTS += [(c, "altered_token") for c in CELLS if not c.endswith("train-b512")]
+# each cell with each fault that its mix's driver plants in the program
+FAULTS = [(c, f) for c in CELLS for f in harness.cell_driver(c).FAULTS]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)
 def test_broken_timed_path_is_not_correct(cell, fault):
-    import stt_tpu_torch.decode.device as decode_device
-    import stt_tpu_torch.train.step as train_step
-
-    where = {"unchanged": (train_step, "_update", _unchanged),
-             "half_batch": (train_step, "_update", _half_batch),
-             "altered_token": (decode_device, "rebuild_results", _altered)}[fault]
-    with patched(*where):
+    module, name, make = harness.cell_driver(cell).FAULTS[fault]
+    with patched(importlib.import_module(module), name, make):
         correct, checks, _, _ = drive(cell)
     assert not correct, checks
 

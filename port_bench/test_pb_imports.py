@@ -70,9 +70,14 @@ print(json.dumps(loaded))
 """
 
 REFERENCE_ONLY = """
-import json, sys
+import importlib, json, pkgutil, sys
 sys.path.insert(0, {root!r})
-import port_bench.reference.model, port_bench.reference.beam, port_bench.yardstick
+import port_bench.reference, port_bench.yardstick
+found = [m.name for m in pkgutil.walk_packages(port_bench.reference.__path__, "port_bench.reference.")]
+if not found:
+    sys.exit("no module under port_bench/reference/")
+for name in found:
+    importlib.import_module(name)
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in ("stt_tpu_torch", "stt_tpu"))))
 """
 

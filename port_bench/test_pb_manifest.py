@@ -55,6 +55,13 @@ def test_cell_files_and_metrics(cell):
     for fn in ("setup", "window", "release", "reference", "program", "numbers", "readings",
                "variant"):
         assert callable(getattr(driver, fn))
+    name = driver.__name__
+    tiny = getattr(driver, "TINY", None)
+    assert isinstance(tiny, dict) and {"traffic", "cfg", "limits"} <= set(tiny), \
+        f"{name} has no TINY with traffic, cfg and limits (the CPU tests' cut)"
+    assert set(tiny["limits"]) == set(workload["limits"]), \
+        f"{name}'s TINY limits {sorted(tiny['limits'])} are not {cell}'s {sorted(workload['limits'])}"
+    assert getattr(driver, "FAULTS", None), f"{name} plants no fault (FAULTS)"
     e2e = harness.cell_metrics(BENCH, cell, "end_to_end")
     assert "setup_s" in [m["name"] for m in e2e] and len(e2e) >= 2
     assert harness.cell_metrics(BENCH, cell, "per_layer")

@@ -229,3 +229,18 @@ def test_the_clock_is_the_one_that_holds_the_trace(monkeypatch):
     [got] = spans.window_spans(run, now=now)
     # the monotonic clock holds the trace: 120 and 150 past its anchor
     assert (got.start, got.end) == (BASE // 2 + 120, BASE // 2 + 150)
+
+
+def test_an_idle_gap_takes_the_name_of_what_the_host_did_most():
+    """The harness's feeds hold the program's round, which holds its beam
+    issue; the harness's wait for the next tick holds nothing. Each moment
+    of a gap counts for the innermost span open then (the one begun last),
+    or for "harness" where none is; the gap takes the name with the most.
+    A gap that opens in the tick's last feed and runs on through the wait
+    is the wait's."""
+    opened = [("pool.feed", 0, 100), ("pool.round", 10, 50), ("pool.beam", 20, 30),
+              ("pool.feed", 110, 120), ("pool.wait", 130, 300)]
+    gaps = [(22, 40), (15, 32), (60, 100), (115, 290), (300, 400), (95, 127)]
+    assert harness.name_gaps(gaps, opened) == [
+        ("pool.round", 18e-9), ("pool.beam", 17e-9), ("pool.feed", 40e-9),
+        ("pool.wait", 175e-9), ("harness", 100e-9), ("harness", 32e-9)]
