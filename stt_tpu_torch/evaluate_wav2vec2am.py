@@ -9,17 +9,21 @@ ctc_beam_search_decoder_for_wav2vec2am. Here emissions come from either:
 
   --emissions_dir  precomputed per-wav <stem>.npy [T, n_labels] log-prob
                    or prob matrices (the offline path), or
-  --model_dir      a local HuggingFace Wav2Vec2ForCTC checkpoint run by
-                   torch on the card unless the caller passes the CPU
-                   (needs the `transformers` package, imported only
-                   there; weights must already be on disk).
+  --model_dir      a local HuggingFace Wav2Vec2ForCTC checkpoint (the
+                   stable-layer-norm layout of the large LV-60 models),
+                   run by the port's own forward (`models.wav2vec2`) on
+                   the card unless the caller passes the CPU; weights
+                   must already be on disk.
 
 Decoding behavior matches the reference: AM labels absent from the
 scorer alphabet are added to ignored_symbols (evaluate_wav2vec2am.py
 EvaluationPool.init), audio is RMS-normalized to -27 dBFS and truncated
 at 250k samples before inference. Without a scorer the batch decodes
 in the beam kernel K5 (`decode.device`), on the card unless the caller
-passes device="cpu" (`--device cpu`).
+passes device="cpu" (`--device cpu`). With --model_dir and no scorer the
+test set is sorted by length and cut into batches of --test_batch_size
+(`transcribe_batch`): audio, emissions and the decode's backpointers
+stay on the device, and only the chosen paths come to the host.
 """
 
 from __future__ import annotations
@@ -29,24 +33,73 @@ import csv
 import json
 import os
 import random
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
+from stt_tpu_torch import trace
 from stt_tpu_torch.alphabet import Alphabet
-from stt_tpu_torch.decode import ctc_beam_search_decoder_for_wav2vec2am
+from stt_tpu_torch.decode import DecodeResult, ctc_beam_search_decoder_for_wav2vec2am
+from stt_tpu_torch.decode.device import ctc_beam_search_decoder_device
+from stt_tpu_torch.device import resolve_device
 from stt_tpu_torch.evaluate_tools import calculate_and_print_report, process_decode_result
+from stt_tpu_torch.models.wav2vec2 import Wav2Vec2CTC, load_wav2vec2
 from stt_tpu_torch.text import wer_cer_batch
 
 MAX_INPUT_SAMPLES = 250000
+RMS_DB = -27.0
 
 
-def rms_normalize(wav: np.ndarray, db_level: float = -27.0) -> np.ndarray:
+def rms_normalize(wav: np.ndarray, db_level: float = RMS_DB) -> np.ndarray:
     r = 10 ** (db_level / 20)
     energy = np.sum(wav**2)
     if energy <= 0:
         return wav
     return wav * np.sqrt((len(wav) * (r**2)) / energy)
+
+
+def rms_normalize_rows(audio: torch.Tensor, lengths: torch.Tensor,
+                       db_level: float = RMS_DB) -> torch.Tensor:
+    """`rms_normalize` of each row's first lengths[i] samples, where the
+    batch lies; samples past a row's length become 0."""
+    valid = torch.arange(audio.shape[1], device=audio.device)[None, :] < lengths[:, None]
+    audio = torch.where(valid, audio, torch.zeros_like(audio))
+    energy = (audio * audio).sum(dim=1)
+    target = lengths.to(audio.dtype) * (10 ** (db_level / 20)) ** 2
+    scale = torch.where(energy > 0, torch.sqrt(target / energy), torch.ones_like(energy))
+    return audio * scale[:, None]
+
+
+class BatchTranscripts(NamedTuple):
+    results: List[List[DecodeResult]]  # per row, its num_results best
+    log_probs: torch.Tensor  # [B, T, C] emissions, where the model ran
+    frames: np.ndarray  # [B] valid frames of each row
+
+
+def transcribe_batch(model: Wav2Vec2CTC, audio: torch.Tensor, lengths: Sequence[int],
+                     alphabet: Alphabet, blank_id: int = 0, ignored_symbols: Sequence[int] = (),
+                     beam_width: int = 500, cutoff_prob: float = 1.0, cutoff_top_n: int = 40,
+                     num_results: int = 1) -> BatchTranscripts:
+    """A batch of utterances, audio [B, S] float32 on the model's device
+    with lengths[i] valid samples in row i, -> transcripts, without a
+    language model: each row truncated at MAX_INPUT_SAMPLES and normalised
+    to -27 dBFS over its samples, the forward, the log-softmax, and the
+    beam search of `decode.device` (K5 and the backtrace on the card) over
+    the emissions where they lie. Only the chosen paths reach the host."""
+    lengths = torch.as_tensor(np.minimum(np.asarray(lengths, np.int64), MAX_INPUT_SAMPLES))
+    on_device = lengths.to(audio.device)  # first: a wait here finds the device idle
+    with torch.no_grad():
+        audio = rms_normalize_rows(audio[:, :MAX_INPUT_SAMPLES].float(), on_device)
+        logits, frames = model(audio, lengths)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        frames = frames.numpy()
+        with trace.span("decode.batch"):
+            results = ctc_beam_search_decoder_device(
+                log_probs.exp(), frames, alphabet, beam_size=beam_width,
+                cutoff_prob=cutoff_prob, cutoff_top_n=cutoff_top_n, num_results=num_results,
+                blank_id=blank_id, ignored_symbols=ignored_symbols)
+    return BatchTranscripts(results, log_probs, frames)
 
 
 def load_am_config(model_dir: str) -> dict:
@@ -110,34 +163,58 @@ def collect_emissions_precomputed(emissions_dir: str, wav_filenames):
     return emissions
 
 
-def collect_emissions_torch(model_dir: str, wav_filenames, device="cuda"):
-    """Run a local Wav2Vec2ForCTC on `device` (the onnxruntime
-    replacement); the emissions come back as numpy."""
-    try:
-        import torch
-        from transformers import Wav2Vec2ForCTC
-    except ImportError as e:  # pragma: no cover
-        raise RuntimeError(
-            "torch/transformers unavailable: use --emissions_dir with "
-            "precomputed emissions instead"
-        ) from e
-
+def _read_inputs(wav_filenames) -> List[np.ndarray]:
+    """Each file's samples at 16 kHz, float32, truncated at MAX_INPUT_SAMPLES."""
     from stt_tpu_torch.data.audio import read_audio
-    from stt_tpu_torch.device import resolve_device
 
+    return [read_audio(wav, desired_rate=16000)[0][:MAX_INPUT_SAMPLES].astype(np.float32)
+            for wav in wav_filenames]
+
+
+def collect_emissions_torch(model_dir: str, wav_filenames, device="cuda"):
+    """Run the checkpoint in `model_dir` (`load_wav2vec2`) on `device` (the
+    onnxruntime replacement), one file at a time; each file's emissions
+    [T, C] log-probabilities come back as numpy."""
     device = resolve_device(device)
-    model = Wav2Vec2ForCTC.from_pretrained(model_dir).to(device)
-    model.eval()
+    model = load_wav2vec2(model_dir, device)
     emissions = []
     with torch.no_grad():
-        for wav in wav_filenames:
-            audio, _ = read_audio(wav, desired_rate=16000)
-            audio = rms_normalize(audio[:MAX_INPUT_SAMPLES].astype(np.float32))
-            logits = model(torch.from_numpy(audio)[None].to(device)).logits[0]
-            emissions.append(
-                torch.log_softmax(logits.float(), dim=-1).cpu().numpy()
-            )
+        for audio in _read_inputs(wav_filenames):
+            audio = rms_normalize(audio)
+            logits, frames = model(torch.from_numpy(audio)[None].to(device), [len(audio)])
+            emissions.append(torch.log_softmax(logits[0, :int(frames[0])].float(), dim=-1)
+                             .cpu().numpy())
     return emissions
+
+
+def transcribe_files(model_dir: str, wav_filenames, alphabet: Alphabet, blank_id: int,
+                     ignored_symbols: Sequence[int], beam_width: int, batch_size: int,
+                     num_results: int = 1, dump_emissions: Optional[str] = None,
+                     device="cuda") -> List[str]:
+    """The checkpoint's transcripts of the files, in their order, without a
+    language model: sorted by length, cut into batches of `batch_size`,
+    each through `transcribe_batch` on `device`. With `dump_emissions`,
+    each file's emissions are saved there as <stem>.npy."""
+    device = resolve_device(device)
+    model = load_wav2vec2(model_dir, device)
+    audios = _read_inputs(wav_filenames)
+    order = sorted(range(len(audios)), key=lambda i: len(audios[i]))
+    transcripts = [""] * len(audios)
+    for start in range(0, len(order), max(1, batch_size)):
+        rows = order[start:start + max(1, batch_size)]
+        lengths = [len(audios[i]) for i in rows]
+        batch = np.zeros((len(rows), max(lengths)), np.float32)
+        for j, i in enumerate(rows):
+            batch[j, :lengths[j]] = audios[i]
+        out = transcribe_batch(model, torch.from_numpy(batch).to(device), lengths, alphabet,
+                               blank_id, ignored_symbols, beam_width, num_results=num_results)
+        for j, i in enumerate(rows):
+            transcripts[i] = out.results[j][0].transcript
+            if dump_emissions:
+                stem = os.path.splitext(os.path.basename(wav_filenames[i]))[0]
+                np.save(os.path.join(dump_emissions, stem + ".npy"),
+                        out.log_probs[j, :out.frames[j]].cpu().numpy())
+    return transcripts
 
 
 def build_decode_inputs(model_dir: str,
@@ -174,22 +251,30 @@ def evaluate_wav2vec2am(
     num_results: int = 1,
     dump_emissions: Optional[str] = None,
     device="cuda",
+    test_batch_size: int = 1,
 ) -> list:
     entries = read_csv_entries(csv_files)
     wavs = [e[0] for e in entries]
+    alphabet, scorer_alphabet, scorer, ignored, blank_id = (
+        build_decode_inputs(model_dir, scorer_path, scorer_alphabet_path)
+    )
+    if dump_emissions:
+        os.makedirs(dump_emissions, exist_ok=True)
+    if scorer is None and not emissions_dir:
+        # the model and the decode in batches on the device
+        transcripts = transcribe_files(model_dir, wavs, scorer_alphabet, blank_id,
+                                       sorted(ignored), beam_width, test_batch_size,
+                                       num_results, dump_emissions, device)
+        return [process_decode_result(wav, truth, transcript, 0.0)
+                for (wav, truth), transcript in zip(entries, transcripts)]
     if emissions_dir:
         emissions = collect_emissions_precomputed(emissions_dir, wavs)
     else:
         emissions = collect_emissions_torch(model_dir, wavs, device)
     if dump_emissions:
-        os.makedirs(dump_emissions, exist_ok=True)
         for wav, em in zip(wavs, emissions):
             stem = os.path.splitext(os.path.basename(wav))[0]
             np.save(os.path.join(dump_emissions, stem + ".npy"), em)
-
-    alphabet, scorer_alphabet, scorer, ignored, blank_id = (
-        build_decode_inputs(model_dir, scorer_path, scorer_alphabet_path)
-    )
     if scorer is not None and lm_alpha is not None and lm_beta is not None:
         scorer.reset_params(lm_alpha, lm_beta)
 
@@ -198,8 +283,6 @@ def evaluate_wav2vec2am(
         # no LM: token remap is identity, so the whole batch decodes on
         # the device in the beam kernel (decode/device.py, wav2vec2
         # class layout via blank_id/ignored_symbols)
-        from stt_tpu_torch.decode.device import ctc_beam_search_decoder_device
-
         probs_batch = [
             np.exp(e) if e.min() < 0 else e for _, e in zip(entries, emissions)
         ]
@@ -311,6 +394,9 @@ def main(argv=None):
     parser.add_argument("--n_trials", type=int, default=30)
     parser.add_argument("--test_output_file",
                         help="write per-sample JSON results here")
+    parser.add_argument("--test_batch_size", type=int, default=1,
+                        help="utterances a batch of the model and the decode (--model_dir "
+                             "without a scorer)")
     parser.add_argument("--device", default="cuda",
                         help="where the acoustic model (--model_dir without --emissions_dir) and the "
              "no-scorer batch decode run (cuda or cpu)")
@@ -328,6 +414,7 @@ def main(argv=None):
         scorer_path=args.scorer, scorer_alphabet_path=args.scorer_alphabet,
         beam_width=args.beam_width, lm_alpha=args.lm_alpha,
         lm_beta=args.lm_beta, dump_emissions=args.dump_emissions, device=args.device,
+        test_batch_size=args.test_batch_size,
     )
     if args.test_output_file:
         from stt_tpu_torch.evaluate_tools import save_samples_json

@@ -26,10 +26,14 @@ tests/test_torch_scorer.py; both packages' tools write it byte-equal):
   port's side, stt_tpu's XLA scan on its side), and
   `compute_lm_optimization_wav2vec2am`: the same transcripts, WER and CER,
   and the same best (alpha, beta, WER);
-- `collect_emissions_torch` (the --model_dir path) with a stand-in for
-  `transformers`' Wav2Vec2ForCTC, which neither machine has: the model
-  and its input on the device asked for (the card by default, refused
-  here), emissions equal to stt_tpu's bit for bit.
+- `collect_emissions_torch` (the --model_dir path with a scorer) with a
+  stand-in for the model that `load_wav2vec2` loads (and, on stt_tpu's
+  side, for `transformers`' Wav2Vec2ForCTC): the model and its input on
+  the device asked for (the card by default, refused here), emissions
+  equal to stt_tpu's bit for bit;
+- `evaluate_wav2vec2am` with --model_dir and no scorer on a tiny seeded
+  checkpoint: batches of 2 (`transcribe_batch`) give the transcripts of
+  one utterance at a time.
 """
 
 import contextlib
@@ -308,14 +312,30 @@ class StandInWav2Vec2(torch.nn.Module):
         return types.SimpleNamespace(logits=self.conv(audio[:, None]).transpose(1, 2))
 
 
+class PortStandIn(StandInWav2Vec2):
+    """The stand-in with the port's model's call: (audio [B, S], lengths)
+    -> (logits [B, T, C], frames [B])."""
+
+    def forward(self, audio, lengths):
+        logits = super().forward(audio).logits
+        return logits, torch.full((audio.shape[0],), logits.shape[1])
+
+
+def stand_in_loader(model_dir, device):
+    assert os.path.isfile(os.path.join(model_dir, "config.json"))
+    return PortStandIn().to(device)
+
+
 def test_collect_emissions_torch_runs_on_the_device_asked_for(data, am_dir, monkeypatch):
-    monkeypatch.setitem(sys.modules, "transformers",
-                        types.SimpleNamespace(Wav2Vec2ForCTC=StandInWav2Vec2))
+    monkeypatch.setattr(evaluate_wav2vec2am, "load_wav2vec2", stand_in_loader)
     wavs = [wav for wav, _ in jax_w2v.read_csv_entries([data["csv"]])]
     StandInWav2Vec2.seen.clear()
     got = evaluate_wav2vec2am.collect_emissions_torch(str(am_dir), wavs, device="cpu")
     assert StandInWav2Vec2.seen == [torch.device("cpu")] * len(wavs)
-    want = jax_w2v.collect_emissions_torch(str(am_dir), wavs)
+    with monkeypatch.context() as m:  # stt_tpu's side loads transformers' class
+        m.setitem(sys.modules, "transformers",
+                  types.SimpleNamespace(Wav2Vec2ForCTC=StandInWav2Vec2))
+        want = jax_w2v.collect_emissions_torch(str(am_dir), wavs)
     assert len(got) == len(want) == 5
     for g, w in zip(got, want):
         assert isinstance(g, np.ndarray) and g.shape == w.shape and g.shape[1] == len(AM_LABELS)
@@ -323,3 +343,40 @@ def test_collect_emissions_torch_runs_on_the_device_asked_for(data, am_dir, monk
     if not torch.cuda.is_available():  # the default is the card
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             evaluate_wav2vec2am.collect_emissions_torch(str(am_dir), wavs)
+
+
+@pytest.fixture(scope="module")
+def w2v2_dir(data):
+    """A tiny wav2vec2 checkpoint in HuggingFace's layout (config.json,
+    vocab.json, pytorch_model.bin), seeded, its CTC head scaled so that the
+    emissions are peaky."""
+    from stt_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2CTC
+
+    root = data["root"] / "w2v2"
+    root.mkdir()
+    config = dict(conv_dim=[16] * 7, conv_kernel=[10, 3, 3, 3, 3, 2, 2],
+                  conv_stride=[5, 2, 2, 2, 2, 2, 2], hidden_size=32, num_hidden_layers=2,
+                  num_attention_heads=2, intermediate_size=64, num_conv_pos_embeddings=16,
+                  num_conv_pos_embedding_groups=2, vocab_size=len(AM_LABELS), pad_token_id=0,
+                  do_stable_layer_norm=True, feat_extract_norm="layer")
+    (root / "config.json").write_text(json.dumps(config))
+    (root / "vocab.json").write_text(json.dumps(
+        {("|" if label == " " else label): i for i, label in enumerate(AM_LABELS)}))
+    torch.manual_seed(21)
+    model = Wav2Vec2CTC(Wav2Vec2Config.from_dict(config))
+    with torch.no_grad():
+        model.lm_head.weight.mul_(30.0)
+    torch.save(model.state_dict(), root / "pytorch_model.bin")
+    return root
+
+
+def test_evaluate_wav2vec2am_batches_give_the_transcripts_of_one_at_a_time(data, w2v2_dir):
+    kw = dict(beam_width=16, device="cpu")
+    one, _ = quiet(evaluate_wav2vec2am.evaluate_wav2vec2am, [data["csv"]], str(w2v2_dir),
+                   test_batch_size=1, **kw)
+    two, _ = quiet(evaluate_wav2vec2am.evaluate_wav2vec2am, [data["csv"]], str(w2v2_dir),
+                   test_batch_size=2, **kw)
+    assert len(one) == len(two) == 5
+    assert [(r.sample_id, r.src, r.res) for r in two] == \
+        [(r.sample_id, r.src, r.res) for r in one]
+    assert all(r.res for r in one)

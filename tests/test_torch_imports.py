@@ -80,6 +80,18 @@ def test_every_module_imports_without_jax_or_stt_tpu():
     assert int(proc.stdout.strip()) >= 100
 
 
+def test_deepspeech_entry_points_load_nothing_of_wav2vec2_or_transformers():
+    proc = run("""
+        import sys
+        import stt_tpu_torch.evaluate, stt_tpu_torch.models, stt_tpu_torch.serve
+        loaded = [m for m in sys.modules if m.split(".")[0] == "transformers"
+                  or m in ("stt_tpu_torch.models.wav2vec2", "stt_tpu_torch.evaluate_wav2vec2am")]
+        assert not loaded, loaded
+        assert "stt_tpu_torch.models.deepspeech" in sys.modules
+    """)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_no_import_statement_names_jax_or_stt_tpu():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "stt_tpu_torch")):

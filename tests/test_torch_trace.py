@@ -2,7 +2,8 @@
 allocated without a profiler session; during one, spans with their parents,
 threads, counters and `record_function` ranges, on a clock that maps onto
 the profiler's; and the span tree of each instrumented path (a train step,
-a batch device decode, a stream pool) at a tiny size."""
+a batch device decode, a stream pool, a wav2vec2 batch transcription) at a
+tiny size."""
 
 import json
 import threading
@@ -19,8 +20,10 @@ from stt_tpu_torch.alphabet import Alphabet
 from stt_tpu_torch.artifact import build_metadata, save_artifact
 from stt_tpu_torch.config import SttConfig
 from stt_tpu_torch.evaluate import decode_batch
+from stt_tpu_torch.evaluate_wav2vec2am import transcribe_batch
 from stt_tpu_torch.frontend import FeatureConfig
 from stt_tpu_torch.models import DeepSpeech, ModelConfig
+from stt_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2CTC
 from stt_tpu_torch.serve import Model, StreamPool
 from stt_tpu_torch.train.step import Batch, create_train_state, make_train_step
 
@@ -193,6 +196,22 @@ def _pool(served):
         stream.finish_stream_with_metadata()
 
 
+W2V2 = Wav2Vec2Config(conv_dim=(8,) * 7, hidden_size=16, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=32, num_conv_pos_embeddings=8,
+                      num_conv_pos_embedding_groups=2)
+W2V2_LENGTHS = [8000, 5000]
+
+
+def _w2v2():
+    torch.manual_seed(4)
+    model = Wav2Vec2CTC(W2V2).eval()
+    audio = 0.1 * torch.randn(2, 8000, generator=torch.Generator().manual_seed(5))
+    labels = ["<pad>", "<s>", "</s>", "<unk>"] + list(" abcdefghijklmnopqrstuvwxyz'")
+    out = transcribe_batch(model, audio, W2V2_LENGTHS, Alphabet().init_from_labels(labels),
+                           blank_id=0, ignored_symbols=[1, 2, 3], beam_width=8)
+    assert len(out.results) == 2
+
+
 PATHS = {
     "train": (lambda served: _train(), {
         (None, "train.step"), ("train.step", "train.forward"), ("train.step", "ctc.loss"),
@@ -201,6 +220,10 @@ PATHS = {
     "decode": (lambda served: _decode(), {
         (None, "decode.batch"), ("decode.batch", "decode.rebuild")}),
     "pool": (_pool, {(None, "pool.round"), ("pool.round", "pool.beam")}),
+    "w2v2": (lambda served: _w2v2(), {
+        (None, "w2v2.forward"), ("w2v2.forward", "w2v2.features"),
+        ("w2v2.forward", "w2v2.attention"), (None, "decode.batch"),
+        ("decode.batch", "decode.rebuild")}),
 }
 
 
@@ -235,6 +258,15 @@ def test_a_traced_path_emits_its_span_tree(path, served):
         assert all(r.counters["pool.slots"] == 3 for r in rounds)
         assert sum(r.counters["pool.slots_emitting"] for r in rounds) > 0
         assert all(r.counters["pool.slots_emitting"] <= 2 for r in rounds)
+    elif path == "w2v2":
+        # one forward of 2 rows padded to 8000 samples; a span per layer's attention
+        [forward] = by_name["w2v2.forward"]
+        frames = [int(W2V2.frames(n)) for n in W2V2_LENGTHS]
+        assert forward.counters == {"w2v2.frames": 2 * frames[0],
+                                    "w2v2.valid_frames": sum(frames)}
+        assert len(by_name["w2v2.attention"]) == W2V2.num_hidden_layers
+        [features] = by_name["w2v2.features"]
+        assert features.end <= min(a.start for a in by_name["w2v2.attention"])
 
 
 def test_a_new_session_drops_the_spans_of_the_last():
